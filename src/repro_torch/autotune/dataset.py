@@ -1,0 +1,74 @@
+"""Tenset-like offline dataset generation (paper §3.6 Step 1 + §4.1).
+
+Randomly samples (task, config) pairs on a device and records measured
+throughput — the pre-training corpus for the source-device cost model, and
+the "comprehensive tensor program dataset for two embedded devices" the paper
+contributes (we generate it for every simulated device; see
+benchmarks/dataset_stats). PyTorch port of `repro.autotune.dataset`.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from repro_torch.autotune.devices import measure
+from repro_torch.autotune.space import Workload, random_config
+from repro_torch.autotune.tasks import PAPER_DNN_NAMES, paper_dnn_tasks
+from repro_torch.core.cost_model import Records, normalize_per_task
+from repro_torch.core.features import extract_features
+
+
+def training_task_pool(seed: int = 0, include_archs: bool = False
+                       ) -> List[Workload]:
+    """A broad pool of tasks for pre-training (paper: "randomly generated
+    tensor programs for widely [used] deep learning models"): the paper
+    DNNs' tasks plus random GEMMs, as the reference builds it with
+    `include_archs=False`. The LM-architecture tasks wait for the port of
+    `configs/base.py`."""
+    if include_archs:
+        raise NotImplementedError(
+            "include_archs=True needs arch_tasks, which waits for the port "
+            "of configs/base.py")
+    tasks: List[Workload] = []
+    for name in PAPER_DNN_NAMES:
+        tasks.extend(paper_dnn_tasks(name))
+    # dedup by key
+    uniq: Dict[str, Workload] = {}
+    for t in tasks:
+        uniq.setdefault(t.key(), t)
+    rng = np.random.RandomState(seed)
+    # plus random synthetic GEMMs for coverage
+    for _ in range(40):
+        M = int(2 ** rng.uniform(5, 14))
+        N = int(2 ** rng.uniform(5, 14))
+        K = int(2 ** rng.uniform(5, 12))
+        w = Workload("matmul", (M, N, K), name=f"rand_{M}x{N}x{K}")
+        uniq.setdefault(w.key(), w)
+    return list(uniq.values())
+
+
+def generate_records(tasks: Sequence[Workload], device: str,
+                     programs_per_task: int = 64, seed: int = 0,
+                     noisy: bool = True) -> Records:
+    """Sample + measure a record pool on `device`. Records are numpy;
+    training moves them to the cost model's device batch by batch. (The
+    reference's hub `store=` waits for the port of the hub.)"""
+    rng = np.random.RandomState(seed)
+    feats, raw, gids = [], [], []
+    for gid, wl in enumerate(tasks):
+        seen = set()
+        for _ in range(programs_per_task):
+            cfg = random_config(wl, rng)
+            if cfg.knobs in seen:
+                continue
+            seen.add(cfg.knobs)
+            thr = measure(wl, cfg, device, trial=0, noisy=noisy)
+            feats.append(extract_features(wl, cfg))
+            raw.append(thr)
+            gids.append(gid)
+    x = np.stack(feats)
+    raw = np.asarray(raw, np.float32)
+    g = np.asarray(gids, np.int32)
+    y = normalize_per_task(raw, g)
+    return Records(x=x, y=y, g=g, raw_throughput=raw)

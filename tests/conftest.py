@@ -20,6 +20,12 @@ import pytest  # noqa: E402
 TEST_TIMEOUT_S = int(os.environ.get("REPRO_TEST_TIMEOUT", "300"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips inside the test when "
+        "torch.cuda.is_available() is false")
+
+
 @pytest.hookimpl(wrapper=True)
 def pytest_runtest_call(item):
     if (TEST_TIMEOUT_S <= 0 or not hasattr(signal, "SIGALRM")

@@ -1,0 +1,73 @@
+"""The kernel build path (`repro_torch.kernels.build`), driven with a stand-in
+for nvcc: this box has no CUDA toolkit, so the real compile only happens on
+the card (chip_smoke.py)."""
+import os
+import stat
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "{calls}"
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo "ptxas info    : Used 80 registers, 16512 bytes smem"
+{fail}
+printf 'lib' > "$out"
+"""
+
+
+def _fake_nvcc(tmp_path, fail=False):
+    calls = tmp_path / "calls.txt"
+    path = tmp_path / "nvcc"
+    path.write_text(FAKE_NVCC.format(
+        calls=calls, fail='echo "error: broken" >&2; exit 1' if fail else ""))
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return str(path), calls
+
+
+def test_builds_once_per_source_content(tmp_path, monkeypatch):
+    nvcc, calls = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
+    lib = build.build("matmul")
+    assert lib == build.library_path("matmul") and lib.read_text() == "lib"
+    assert "Used 80 registers" in lib.with_suffix(".so.log").read_text()
+    line = calls.read_text()
+    assert "arch=compute_90a,code=sm_90a" in line and "-shared" in line
+    assert line.rstrip().endswith("matmul.cu")
+    build.build("matmul")  # cached: nvcc is not run again
+    assert len(calls.read_text().splitlines()) == 1
+    assert not [p for p in os.listdir(tmp_path / "build") if ".tmp" in p]
+
+
+def test_failed_build_raises_and_leaves_nothing(tmp_path, monkeypatch):
+    nvcc, _ = _fake_nvcc(tmp_path, fail=True)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="broken"):
+        build.build("matmul")
+    assert os.listdir(tmp_path / "build") == []
+
+
+def test_library_path_follows_source_content(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// one")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path("k")
+    (tmp_path / "k.cu").write_text("// two")
+    assert build.library_path("k") != first
+    assert first.parent == build.BUILD_DIR and first.name.startswith("k-")
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    import torch.utils.cpp_extension as ext
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build._nvcc()
