@@ -3,16 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, then drives the Moses
-main path through the port's entry points at full width:
+Builds the port's CUDA kernels (matmul, flash attention, RG-LRU scan) from
+the sources in this checkout, one nvcc each, all started together; holds
+each kernel against its plain PyTorch version on the card over its knob
+corners; then drives two paths through the port's entry points at full
+width, each with the launch counts set to 0 just before it and read just
+after:
 
-  1. pre-train the paper's cost model (164 -> 512 -> 512 -> 1) on simulated
-     tpu_v5p records, as examples/quickstart.py does;
-  2. tune all 12 ResNet-18 GEMMs for tpu_v5e under the `moses` strategy
-     (lottery-ticket adaptation + AC) into a temporary registry;
-  3. launch the matmul kernel with each tuned tile at the GEMM's real shape
-     on bf16 operands, and check and time it.
+  ResNet-18 (the Moses main path)
+    1. pre-train the paper's cost model (164 -> 512 -> 512 -> 1) on
+       simulated tpu_v5p records, as examples/quickstart.py does;
+    2. tune all 12 ResNet-18 GEMMs for tpu_v5e under `moses` into a
+       temporary registry;
+    3. launch the matmul kernel with each tuned tile at the GEMM's real
+       shape on bf16 operands, and check and time it.
+  RecurrentGemma-2B (the LM-architecture autotune path)
+    1. `repro_torch.launch.train.maybe_autotune` pre-trains the cost model
+       and tunes the model's 9 tasks (7 GEMMs, local attention, RG-LRU scan)
+       for tpu_v5e under `moses`, 48 trials each;
+    2. `ops.tuned_matmul` / `tuned_flash_attention` / `tuned_rg_lru` launch
+       each task's kernel with its tuned config at the model's real shapes
+       on bf16 operands, and each is checked and timed.
 
 Every phase prints one JSON line. The line before the last is the card's
 name and power limit as nvidia-smi prints them; the last line is
@@ -20,6 +31,7 @@ name and power limit as nvidia-smi prints them; the last line is
 a CUDA card or outside a checkout of the repository. Imports nothing of JAX.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -36,6 +48,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 TOLERANCE = ("float32 out: |err| <= 1e-5 * max|plain| + 1e-5 * |plain|; "
              "bf16 out: |err| <= one bf16 ulp at max|plain|")
+# the reference's own attention and scan tolerances (tests/test_kernels.py):
+# float32 differs from the plain version in summation order and exp's last
+# bits; with bf16 inputs P is rounded to bf16, and a p that lands on the
+# other side of a rounding boundary moves the output by up to a bf16 ulp of
+# p times |v|
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+ATTN_TOLERANCE = ("|err| <= tol + tol * |plain|, tol = 1e-4 for float32 "
+                  "and 3e-2 for bf16 inputs")
+# the scan multiplies then adds, each rounded, in both versions
+SCAN_TOLERANCE = "|err| <= 1e-5 + 1e-4 * |plain|"
+KERNELS = ("matmul", "flash_attention", "rg_lru")
 
 
 def emit(phase: str, **kw) -> None:
@@ -75,6 +98,20 @@ def check_close(got, want, out_bf16: bool, what: str) -> float:
     return max_err
 
 
+def check_allclose(got, want, rtol: float, atol: float, what: str) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere; returns the max abs
+    error, raises on a mismatch."""
+    import torch
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert bool(torch.isfinite(got).all()), f"{what}: non-finite output"
+    err = (got - want).abs()
+    max_err = float(err.max())
+    assert bool((err <= atol + rtol * want.abs()).all()), \
+        f"{what}: kernel disagrees with plain (max abs err {max_err})"
+    return max_err
+
+
 def time_ms(fn, reps: int, inner: int) -> float:
     """Median over `reps` of the CUDA-event time of `inner` back-to-back
     calls, divided by `inner`. Inputs stay warm in L2 between calls."""
@@ -103,6 +140,29 @@ def matmul_floor_ms(M: int, N: int, K: int, in_dtype: str, out_bf16: bool):
     moved = (M * K + K * N) * in_b + M * N * (2 if out_bf16 else 4)
     return (moved / HBM_BYTES_PER_S * 1e3,
             2.0 * M * N * K / PEAK_FLOPS[in_dtype] * 1e3)
+
+
+def attention_floor_ms(B: int, S: int, D: int, in_dtype: str,
+                       causal: bool):
+    """(bytes_ms, ops_ms) for flash attention on an H100 SXM: q, k, v read
+    once and the float32 output written once over the HBM rate, and
+    4 * B * S^2 * D FLOPs (halved when causal) over the input type's
+    peak."""
+    in_b = 2 if in_dtype == "bfloat16" else 4
+    moved = 3 * B * S * D * in_b + B * S * D * 4
+    flops = 4.0 * B * S * S * D * (0.5 if causal else 1.0)
+    return (moved / HBM_BYTES_PER_S * 1e3,
+            flops / PEAK_FLOPS[in_dtype] * 1e3)
+
+
+def scan_floor_ms(B: int, S: int, W: int, in_dtype: str):
+    """(bytes_ms, ops_ms) for the RG-LRU scan on an H100 SXM: a and x read
+    once and the float32 output written once, and 2 FLOPs per element at
+    the float32 rate (the carry is float32)."""
+    in_b = 2 if in_dtype == "bfloat16" else 4
+    moved = 2 * B * S * W * in_b + B * S * W * 4
+    return (moved / HBM_BYTES_PER_S * 1e3,
+            2.0 * B * S * W / PEAK_FLOPS["float32"] * 1e3)
 
 
 def bound_of(bytes_ms: float, ops_ms: float):
@@ -141,7 +201,109 @@ def kernel_check(mm, torch_device: str) -> dict:
                         got, want, out_bf16, f"{(M, N, K)} {dtype} {knobs}"))
                     n += 1
     torch.cuda.synchronize()
+    return {"cases": n, "max_abs_err": worst, "timed": kouter_timing(mm)}
+
+
+def kouter_timing(mm) -> list:
+    """Both accumulation orders timed at one stated shape, RecurrentGemma-
+    2B's out_proj (512 x 2560 x 2560), tile 128 x 128 x 128, bf16 operands
+    and output, beside the plain version and torch.matmul."""
+    import torch
+    M, N, K = 512, 2560, 2560
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+    bound_ms, bound_by = bound_of(*matmul_floor_ms(M, N, K, "bfloat16", True))
+    rows = []
+    for k_inner in (False, True):
+        knobs = dict(block_m=128, block_n=128, block_k=128, k_inner=k_inner,
+                     out_bf16=True)
+        rows.append({
+            "dims": [M, N, K], "knobs": knobs,
+            "ms": time_ms(lambda: mm.matmul(a, b, **knobs), reps=7, inner=5),
+            "plain_ms": time_ms(lambda: mm.matmul_plain(a, b, **knobs),
+                                reps=3, inner=1),
+            "library_ms": time_ms(lambda: torch.matmul(a, b), reps=7,
+                                  inner=10),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+def attention_check(fa, torch_device: str) -> dict:
+    """Every case: CUDA flash attention vs flash_attention_plain on the
+    card. Cases are (B, S, D, causal, window, block_q, block_kv, scale),
+    each in float32 and bf16."""
+    import torch
+    gen = torch.Generator(device=torch_device).manual_seed(3)
+    cases = []
+    for S in (64, 100, 128):  # the CPU tests' sweep
+        for causal, window in ((True, 0), (True, 16), (False, 0),
+                               (False, 16)):
+            cases.append((2, S, 32, causal, window, 32, 32, None))
+    for D in (80, 120, 192, 256):
+        cases.append((2, 64, D, True, 0, 32, 32, None))
+    cases.append((2, 100, 32, True, 0, 64, 32, None))    # uneven blocks
+    cases.append((2, 100, 32, True, 16, 32, 32, 0.3))    # explicit scale
+    for window in (0, 300):                              # the knob corners
+        cases.append((2, 2048, 256, True, window, 1024, 1024, None))
+    cases.append((2, 2048, 256, True, 0, 64, 1024, None))
+    cases.append((3, 1, 64, True, 0, 64, 64, None))      # S = 1
+    for D in (64, 80, 120, 128, 192, 256):               # the LM zoo's D
+        cases.append((2, 512, D, True, 0, 128, 256, None))
+    cases.append((12, 128, 64, False, 0, 64, 128, None))  # BERT-base
+    n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for B, S, D, causal, window, bq, bkv, scale in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((B, S, D), generator=gen,
+                                   device=torch_device).to(dtype)
+                       for _ in range(3))
+            kw = dict(causal=causal, window=window, block_q=bq,
+                      block_kv=bkv, scale=scale)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            name = str(dtype).split(".")[1]
+            tol = ATTN_TOL[name]
+            worst[name] = max(worst[name], check_allclose(
+                got, want, tol, tol, f"attention {(B, S, D)} {name} {kw}"))
+            n += 1
+    torch.cuda.synchronize()
     return {"cases": n, "max_abs_err": worst}
+
+
+def scan_inputs(B: int, S: int, W: int, dtype, gen, torch_device: str):
+    """Decays in (0, 0.98) and standard normal inputs, as the tests draw
+    them."""
+    import torch
+    a = torch.sigmoid(torch.randn((B, S, W), generator=gen,
+                                  device=torch_device)) * 0.98
+    x = torch.randn((B, S, W), generator=gen, device=torch_device)
+    return a.to(dtype), x.to(dtype)
+
+
+def scan_check(lru, torch_device: str) -> dict:
+    """Every case: CUDA RG-LRU scan vs rg_lru_plain on the card. Cases are
+    ((B, S, W), chunk, block_w, dtype)."""
+    import torch
+    gen = torch.Generator(device=torch_device).manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(shape, ck, bw, f32)  # the CPU tests' sweep
+             for shape in ((2, 64, 64), (1, 50, 100), (3, 33, 17))
+             for ck, bw in ((16, 32), (64, 64), (8, 128))]
+    cases += [((1, 2048, 2560), 1024, 1024, f32),   # the knob corner
+              ((2, 100, 17), 16, 128, f32),         # W = 17
+              ((4, 1, 300), 16, 128, f32),          # S = 1
+              ((2, 100, 300), 32, 128, bf16),       # bf16 inputs
+              ((1, 2048, 2560), 1024, 1024, bf16),
+              ((1, 12544, 32), 256, 128, f32)]      # MobileNet dw3x3_32_112
+    worst = 0.0
+    for (B, S, W), ck, bw, dtype in cases:
+        a, x = scan_inputs(B, S, W, dtype, gen, torch_device)
+        got = lru.rg_lru(a, x, chunk=ck, block_w=bw)
+        want = lru.rg_lru_plain(a, x, chunk=ck, block_w=bw)
+        worst = max(worst, check_allclose(
+            got, want, 1e-4, 1e-5, f"scan {(B, S, W)} {dtype} {(ck, bw)}"))
+    torch.cuda.synchronize()
+    return {"cases": len(cases), "max_abs_err": worst}
 
 
 def drive_main_path(torch_device: str, moses_cfg, programs_per_task: int,
@@ -203,6 +365,129 @@ def drive_main_path(torch_device: str, moses_cfg, programs_per_task: int,
     return summary, registry, result, gemms
 
 
+def reset_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def drive_lm_path(torch_device: str, arch: str, trials: int):
+    """The LM-architecture autotune path: `maybe_autotune` at full width
+    (MOSES_CFG defaults, 24 programs per pool task, 10 epochs), then each
+    tuned task's kernel once at the model's real shape on bf16 operands
+    (attention as num_heads batch-heads at batch 1 with K/V expanded from
+    the KV heads, causal, window = local_window; the scan at batch 1;
+    GEMMs at M = seq). Returns (cfg, AutotuneRun, [(workload, kind,
+    inputs, tuned output)])."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import maybe_autotune
+
+    cfg = get_config(arch)
+    run = maybe_autotune("tpu_v5e", cfg, trials=trials,
+                         torch_device=torch_device)
+    ops.set_registry(run.registry)
+    gen = torch.Generator(device=torch_device).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=torch_device).to(
+            torch.bfloat16)
+
+    calls = []
+    for t in run.result.tasks:
+        wl = t.workload
+        if wl.kind == "matmul":
+            M, N, K = wl.dims
+            args = {"a": randn(M, K), "b": randn(K, N)}
+            out = ops.tuned_matmul(args["a"], args["b"], device="tpu_v5e")
+        elif wl.kind == "attention":
+            S, D = wl.dims
+            H, G = cfg.num_heads, cfg.num_kv_heads
+            args = {"q": randn(H, S, D),
+                    "k": randn(G, S, D).repeat_interleave(H // G, 0),
+                    "v": randn(G, S, D).repeat_interleave(H // G, 0),
+                    "causal": True, "window": cfg.local_window}
+            out = ops.tuned_flash_attention(device="tpu_v5e", **args)
+        else:
+            S, W = wl.dims
+            a, x = scan_inputs(1, S, W, torch.bfloat16, gen, torch_device)
+            args = {"a": a, "x": x}
+            out = ops.tuned_rg_lru(a, x, device="tpu_v5e")
+        calls.append((wl, args, out))
+    if torch_device != "cpu":
+        torch.cuda.synchronize()
+    return cfg, run, calls
+
+
+def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
+    """Check one LM task's tuned output against the plain version and time
+    the kernel, the plain version and, where one exists, the one PyTorch
+    call that computes the same function. lm_head gets fewer repeats."""
+    import torch
+    import torch.nn.functional as F
+    mm, fa, lru = modules
+    big = wl.name == "lm_head"
+    reps = {"kernel": (2, 1) if big else (7, 10),
+            "plain": (1, 1) if big else (3, 1),
+            "library": (3, 3) if big else (7, 10)}
+    line = {"name": wl.name, "kind": wl.kind, "dims": list(wl.dims),
+            "count": wl.count, "knobs": knobs, "repeats": reps}
+    if wl.kind == "matmul":
+        a, b = args["a"], args["b"]
+        kw = dict(block_m=knobs["block_m"], block_n=knobs["block_n"],
+                  block_k=knobs["block_k"], k_inner=bool(knobs["k_inner"]),
+                  out_bf16=bool(knobs["out_bf16"]))
+        err = check_close(out, mm.matmul_plain(a, b, **kw), kw["out_bf16"],
+                          wl.name)
+        kernel = lambda: mm.matmul(a, b, **kw)  # noqa: E731
+        plain = lambda: mm.matmul_plain(a, b, **kw)  # noqa: E731
+        library = lambda: torch.matmul(a, b)  # noqa: E731
+        M, N, K = wl.dims
+        floor = matmul_floor_ms(M, N, K, "bfloat16", kw["out_bf16"])
+    elif wl.kind == "attention":
+        q, k, v = args["q"], args["k"], args["v"]
+        kw = dict(causal=args["causal"], window=args["window"],
+                  block_q=knobs["block_q"], block_kv=knobs["block_kv"])
+        tol = ATTN_TOL["bfloat16"]
+        err = check_allclose(out, fa.flash_attention_plain(q, k, v, **kw),
+                             tol, tol, wl.name)
+        kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+        B, S, D = q.shape
+        if kw["window"] == 0 or kw["window"] >= S:
+            # the window cuts nothing, so causal SDPA computes the same
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], k[None], v[None], is_causal=True)
+        else:
+            pos = torch.arange(S, device=q.device)
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - kw["window"]))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], k[None], v[None], attn_mask=band)
+        floor = attention_floor_ms(B, S, D, "bfloat16", True)
+    else:
+        a, x = args["a"], args["x"]
+        kw = dict(chunk=knobs["chunk"], block_w=knobs["block_w"])
+        err = check_allclose(out, lru.rg_lru_plain(a, x, **kw), 1e-4, 1e-5,
+                             wl.name)
+        kernel = lambda: lru.rg_lru(a, x, **kw)  # noqa: E731
+        plain = lambda: lru.rg_lru_plain(a, x, **kw)  # noqa: E731
+        library = None
+        line["library_note"] = ("no one PyTorch call computes a linear "
+                                "recurrence")
+        B, S, W = a.shape
+        floor = scan_floor_ms(B, S, W, "bfloat16")
+    line["ms"] = time_ms(kernel, *reps["kernel"])
+    line["plain_ms"] = time_ms(plain, *reps["plain"])
+    line["library_ms"] = (None if library is None
+                          else time_ms(library, *reps["library"]))
+    line["bound_ms"], line["bound_by"] = bound_of(*floor)
+    line["bytes_ms"], line["ops_ms"] = floor
+    line["max_abs_err"] = err
+    return line
+
+
 def cost_model_parity(torch_device: str, moses_cfg) -> float:
     """The full-width cost model scores the same on the card as on the CPU
     (TF32 off): returns the max relative difference, raises above 1e-4."""
@@ -220,6 +505,23 @@ def cost_model_parity(torch_device: str, moses_cfg) -> float:
     return rel
 
 
+def build_all(build) -> dict:
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = build.build(name)
+        ptxas = [ln.strip() for ln in
+                 lib.with_suffix(".so.log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        return name, {"seconds": time.perf_counter() - t0,
+                      "library": str(lib.relative_to(ROOT)), "ptxas": ptxas}
+
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        return dict(ex.map(one, KERNELS))
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found; run it from a "
@@ -231,12 +533,21 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is false; this "
               "smoke test needs an NVIDIA card", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory() as tmp:
+        # the port's default registry, read when the port is imported
+        os.environ["REPRO_TORCH_TUNING_REGISTRY"] = str(
+            Path(tmp) / "tuned_configs_torch.json")
+        return run_phases(torch, tmp)
 
+
+def run_phases(torch, tmp: str) -> int:
     from repro_torch.autotune.space import config_valid
     from repro_torch.autotune.tasks import resnet18_tasks
     from repro_torch.configs.moses import MosesConfig
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rg_lru as lru
 
     smi = nvidia_smi()
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
@@ -244,31 +555,33 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    lib = build.build("matmul")
-    ptxas = [ln.strip() for ln in
-             lib.with_suffix(".so.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0,
-         library=str(lib.relative_to(ROOT)), ptxas=ptxas)
+    built = build_all(build)
+    emit("build", seconds=time.perf_counter() - t0, kernels=built)
 
     # plain versions and the cost model in full float32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("kernel_check", kernel="matmul", tolerance=TOLERANCE,
          **kernel_check(mm, "cuda"))
+    emit("attention_check", kernel="flash_attention",
+         tolerance=ATTN_TOLERANCE, **attention_check(fa, "cuda"))
+    emit("scan_check", kernel="rg_lru", tolerance=SCAN_TOLERANCE,
+         **scan_check(lru, "cuda"))
 
     moses_cfg = MosesConfig()
     emit("cost_model_parity", max_rel_diff=cost_model_parity("cuda",
                                                              moses_cfg))
+
+    # path 1: ResNet-18 GEMMs
     tasks = resnet18_tasks()
-    with tempfile.TemporaryDirectory() as tmp:
-        mm.matmul.launches = 0
-        summary, registry, result, gemms = drive_main_path(
-            "cuda", moses_cfg, programs_per_task=24, epochs=10, trials=32,
-            registry_path=str(Path(tmp) / "tuned_configs.json"), tasks=tasks)
-        launches = mm.matmul.launches
-    emit("main_path", launches=launches, **summary)
-    assert launches >= len(tasks) == 12, f"matmul launched {launches} times"
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    summary, registry, result, gemms = drive_main_path(
+        "cuda", moses_cfg, programs_per_task=24, epochs=10, trials=32,
+        registry_path=str(Path(tmp) / "resnet18.json"), tasks=tasks)
+    launches = {"matmul": mm.matmul.launches}
+    emit("main_path", launches=launches["matmul"], **summary)
+    assert launches["matmul"] >= len(tasks) == 12, \
+        f"matmul launched {launches['matmul']} times"
     for t in result.tasks:
         assert config_valid(t.workload, t.best_config), t
 
@@ -305,19 +618,72 @@ def main() -> int:
         totals["ops_ms"] += ops_ms
     torch.cuda.synchronize()
 
-    # one entry per ported kernel; times are sums over the main path's
-    # GEMMs (one launch each)
-    print(json.dumps({"kernels": [{
+    # path 2: RecurrentGemma-2B through the training launcher's autotune
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    cfg, lm_run, calls = drive_lm_path("cuda", "recurrentgemma-2b", trials=48)
+    lm_launches = {"matmul": mm.matmul.launches,
+                   "flash_attention": fa.flash_attention.launches,
+                   "rg_lru": lru.rg_lru.launches}
+    emit("lm_path", arch=cfg.name, launches=lm_launches,
+         pretrain_seconds=lm_run.pretrain_seconds,
+         pretrain_loss_first=lm_run.pretrain_losses[0],
+         pretrain_loss_last=lm_run.pretrain_losses[-1],
+         tune_seconds=lm_run.tune_seconds, tasks=len(lm_run.result.tasks),
+         measurements=lm_run.result.total_measurements,
+         search_seconds_simulated=lm_run.result.total_search_seconds)
+    n_gemm = sum(1 for wl, _, _ in calls if wl.kind == "matmul")
+    assert len(calls) == 9 and n_gemm == 7, [wl.name for wl, _, _ in calls]
+    assert lm_launches["flash_attention"] >= 1, lm_launches
+    assert lm_launches["rg_lru"] >= 1, lm_launches
+    assert lm_launches["matmul"] >= n_gemm, lm_launches
+    for t in lm_run.result.tasks:
+        assert config_valid(t.workload, t.best_config), t
+
+    per_kernel = {"flash_attention": None, "rg_lru": None}
+    for wl, args, out in calls:
+        knobs = lm_run.registry.get("tpu_v5e", wl).as_dict()
+        line = lm_task_line(wl, args, out, knobs, (mm, fa, lru))
+        emit("lm_task", **line)
+        if wl.kind == "matmul":
+            worst = max(worst, line["max_abs_err"])
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bytes_ms", "ops_ms"):
+                totals[key] += line[key]
+        else:
+            per_kernel["flash_attention" if wl.kind == "attention"
+                       else "rg_lru"] = line
+    torch.cuda.synchronize()
+
+    # one entry per ported kernel. matmul's times are sums over both paths'
+    # GEMMs (one launch each); the other two are their one task's
+    entries = [{
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": f"{TPU_KERNEL}:99",
         "tpu_kernel": f"{TPU_KERNEL}:matmul (pallas_call at :99, k_inner=1,"
                       f" and :115, k_inner=0)",
-        "launches": launches, "checked": True, "max_abs_err": worst,
+        "launches": launches["matmul"] + lm_launches["matmul"],
+        "launches_by_path": {"resnet18": launches["matmul"],
+                             "recurrentgemma-2b": lm_launches["matmul"]},
+        "checked": True, "max_abs_err": worst,
         "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": bound_of(totals["bytes_ms"], totals["ops_ms"])[1],
-        "library_ms": totals["library_ms"]}]}), flush=True)
+        "library_ms": totals["library_ms"]}]
+    for name, src, replaces in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:100"),
+            ("rg_lru", "rg_lru.cu", "src/repro/kernels/rg_lru.py:57")):
+        line = per_kernel[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": lm_launches[name],
+            "checked": True, "max_abs_err": line["max_abs_err"],
+            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+            "library_ms": line["library_ms"]})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,25 +14,23 @@ import numpy as np
 
 from repro_torch.autotune.devices import measure
 from repro_torch.autotune.space import Workload, random_config
-from repro_torch.autotune.tasks import PAPER_DNN_NAMES, paper_dnn_tasks
+from repro_torch.autotune.tasks import (PAPER_DNN_NAMES, arch_tasks,
+                                        paper_dnn_tasks)
 from repro_torch.core.cost_model import Records, normalize_per_task
 from repro_torch.core.features import extract_features
 
 
-def training_task_pool(seed: int = 0, include_archs: bool = False
+def training_task_pool(seed: int = 0, include_archs: bool = True
                        ) -> List[Workload]:
     """A broad pool of tasks for pre-training (paper: "randomly generated
-    tensor programs for widely [used] deep learning models"): the paper
-    DNNs' tasks plus random GEMMs, as the reference builds it with
-    `include_archs=False`. The LM-architecture tasks wait for the port of
-    `configs/base.py`."""
-    if include_archs:
-        raise NotImplementedError(
-            "include_archs=True needs arch_tasks, which waits for the port "
-            "of configs/base.py")
+    tensor programs for widely [used] deep learning models")."""
     tasks: List[Workload] = []
     for name in PAPER_DNN_NAMES:
         tasks.extend(paper_dnn_tasks(name))
+    if include_archs:
+        from repro_torch.configs import ARCH_IDS, get_config
+        for a in ARCH_IDS:
+            tasks.extend(arch_tasks(get_config(a)))
     # dedup by key
     uniq: Dict[str, Workload] = {}
     for t in tasks:

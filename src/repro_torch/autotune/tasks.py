@@ -1,11 +1,12 @@
 """Task (subgraph) extraction.
 
-Two sources in the reference; the port has the first:
+Two sources:
  1. The paper's four evaluation DNNs (ResNet-18, MobileNet, BERT-base,
     SqueezeNet) reproduced as workload suites — convolutions are lowered to
     im2col GEMMs (the standard TPU mapping; DESIGN.md §2).
- 2. The LM architectures (`arch_tasks` in the reference) wait for the port
-    of `configs/base.py`.
+ 2. The 10 assigned LM architectures: their projection / MLP / MoE / attention
+    / recurrent-scan workloads, so tuned configs feed the real models
+    through autotune.registry.
 
 The paper notes ResNet-50 -> 29 subgraphs and SqueezeNet -> 23 tasks; our
 extraction yields comparable task counts at the same granularity (unique
@@ -17,6 +18,7 @@ import math
 from typing import Dict, List
 
 from repro_torch.autotune.space import Workload
+from repro_torch.configs.base import ModelConfig
 
 
 def conv_as_gemm(name: str, H: int, W: int, Cin: int, Cout: int, k: int,
@@ -99,3 +101,80 @@ def paper_dnn_tasks(name: str) -> List[Workload]:
 
 
 PAPER_DNN_NAMES = ("squeezenet", "resnet18", "mobilenet", "bert-base")
+
+
+# ---------------------------------------------------------------------------
+# Assigned architectures -> tuning tasks
+# ---------------------------------------------------------------------------
+
+
+def arch_tasks(cfg: ModelConfig, seq: int = 512) -> List[Workload]:
+    """Extract the per-layer GEMM/attention/scan workloads of an arch."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, G = cfg.num_heads, cfg.num_kv_heads
+    L = cfg.num_layers
+    tasks: List[Workload] = []
+
+    def add(kind, dims, name, count=1):
+        tasks.append(Workload(kind, tuple(int(x) for x in dims), name=name,
+                              count=count))
+
+    if cfg.mla is not None:
+        m = cfg.mla
+        add("matmul", (seq, m.q_lora_rank, d), "mla_q_down", L)
+        add("matmul", (seq, H * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+                       m.q_lora_rank), "mla_q_up", L)
+        add("matmul", (seq, m.kv_lora_rank + m.qk_rope_head_dim, d),
+            "mla_kv_down", L)
+        add("attention", (seq, m.qk_nope_head_dim + m.qk_rope_head_dim),
+            "mla_attn", L)
+        add("matmul", (seq, d, H * m.v_head_dim), "mla_out", L)
+    elif not cfg.block_pattern or "attention" in cfg.block_pattern:
+        n_attn = L if not cfg.block_pattern else sum(
+            1 for i in range(L)
+            if cfg.block_pattern[i % len(cfg.block_pattern)] == "attention")
+        add("matmul", (seq, (H + 2 * G) * hd, d), "qkv_proj", n_attn)
+        add("attention", (seq, hd), "self_attn", n_attn)
+        add("matmul", (seq, d, H * hd), "out_proj", n_attn)
+
+    if cfg.moe is not None:
+        mo = cfg.moe
+        n_moe = L - mo.first_dense_layers
+        cap = int(mo.top_k * seq * mo.capacity_factor / mo.num_experts)
+        add("matmul", (max(cap, 8), mo.d_ff_expert, d), "expert_ffn_in",
+            n_moe * min(mo.num_experts, 8))
+        add("matmul", (max(cap, 8), d, mo.d_ff_expert), "expert_ffn_out",
+            n_moe * min(mo.num_experts, 8))
+        add("matmul", (seq, mo.num_experts, d), "router", n_moe)
+        if mo.first_dense_layers:
+            add("matmul", (seq, cfg.d_ff, d), "dense_ffn_in",
+                mo.first_dense_layers)
+    elif cfg.d_ff > 0:
+        n_mlp = L if not cfg.block_pattern else L  # every block has an MLP
+        if cfg.block_pattern and "slstm" in cfg.block_pattern:
+            n_mlp = 0
+        if n_mlp:
+            add("matmul", (seq, cfg.d_ff * (2 if cfg.use_glu else 1), d),
+                "ffn_in", n_mlp)
+            add("matmul", (seq, d, cfg.d_ff), "ffn_out", n_mlp)
+
+    if cfg.block_pattern:
+        for kind in set(cfg.block_pattern):
+            n = sum(1 for i in range(L)
+                    if cfg.block_pattern[i % len(cfg.block_pattern)] == kind)
+            if kind == "recurrent":
+                w = cfg.lru_width or d
+                add("matmul", (seq, 2 * w, d), "rec_in_proj", n)
+                add("scan", (seq, w), "rg_lru_scan", n)
+                add("matmul", (seq, d, w), "rec_out_proj", n)
+            elif kind == "mlstm":
+                inner = 2 * d
+                add("matmul", (seq, 2 * inner, d), "mlstm_up", n)
+                add("scan", (seq, inner), "mlstm_chunk_scan", n)
+                add("matmul", (seq, d, inner), "mlstm_down", n)
+            elif kind == "slstm":
+                add("matmul", (seq, 4 * d, d), "slstm_gates", n)
+                add("scan", (seq, d), "slstm_scan", n)
+
+    add("matmul", (seq, cfg.padded_vocab_size, d), "lm_head", 1)
+    return tasks

@@ -1,0 +1,147 @@
+"""Training launcher: the Moses autotune step (port of `repro.launch.train`).
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --autotune tpu_v5e [--dry-run] \
+        [--torch-device cpu]
+
+--autotune runs Moses cost-model adaptation for the target device and
+persists the tuned kernel configs of the architecture's tasks (`arch_tasks`)
+to the port's registry (`REPRO_TORCH_TUNING_REGISTRY`, default
+`tuned_configs_torch.json`). --source names the transfer source device.
+--dry-run tunes two tasks on a tiny budget and exits before training. The
+cost model runs on --torch-device (default cuda, which raises without a
+card).
+
+Not ported yet, and raising NotImplementedError: --source auto (the transfer
+hub), --scheduler gradient (the tuning scheduler), --obs (telemetry) and the
+training that follows the autotune step (the LM zoo).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import time
+from typing import List, Optional
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs.moses import DEFAULT as MOSES_CFG
+from repro_torch.core.placement import TorchDevice
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class AutotuneRun:
+    """What one autotune step did: the tuning result, the registry it was
+    saved to, and the seconds of pre-training and of tuning."""
+    result: object
+    registry: object
+    pretrain_losses: List[float]
+    pretrain_seconds: float
+    tune_seconds: float
+
+
+def maybe_autotune(device: str, cfg, source: Optional[str] = None,
+                   scheduler: str = "serial", trials: int = 48,
+                   dry_run: bool = False, obs: Optional[str] = None,
+                   torch_device: TorchDevice = "cuda") -> AutotuneRun:
+    """Pre-train the cost model on `source` (default: the Moses source
+    device), tune `arch_tasks(cfg)` for `device` under `moses` and save the
+    winners to the registry."""
+    if source == "auto":
+        raise NotImplementedError("--source auto routes through the transfer "
+                                  "hub, which waits for the port of "
+                                  "repro.hub")
+    if scheduler != "serial":
+        raise NotImplementedError(f"--scheduler {scheduler} waits for the "
+                                  f"port of repro.sched")
+    if obs:
+        raise NotImplementedError("--obs waits for the port of repro.obs")
+    from repro_torch.autotune.dataset import (generate_records,
+                                              training_task_pool)
+    from repro_torch.autotune.registry import Registry
+    from repro_torch.autotune.tasks import arch_tasks
+    from repro_torch.autotune.tuner import tune
+    from repro_torch.core.cost_model import resolve_cost_model
+
+    tasks = arch_tasks(cfg)
+    moses_cfg = MOSES_CFG
+    if dry_run:
+        # CI fast path: two tasks, tiny search, shallow updates
+        moses_cfg = dataclasses.replace(
+            MOSES_CFG, online_epochs=2, adaptation_epochs=2,
+            population_size=32, evolution_rounds=2, top_k_measure=8)
+        tasks = tasks[:2]
+        trials = min(trials, 16)
+    src_device = source or moses_cfg.source_device
+    log.info("Moses adaptation: source=%s target=%s scheduler=%s",
+             src_device, device, scheduler)
+    t0 = time.perf_counter()
+    pool = training_task_pool(include_archs=False)
+    src = generate_records(pool, src_device,
+                           programs_per_task=8 if dry_run else 24, seed=0)
+    model = resolve_cost_model("mlp", moses_cfg.cost_model, torch_device)
+    params = model.init(0)
+    params, losses = model.train(params, src, epochs=2 if dry_run else 10)
+    pretrain_s = time.perf_counter() - t0
+    reg = Registry()
+    t0 = time.perf_counter()
+    result = tune(tasks, device, "moses", moses_cfg, trials_per_task=trials,
+                  pretrained_params=params, source_pool=src, cost_model=model,
+                  torch_device=torch_device)
+    tune_s = time.perf_counter() - t0
+    reg.ingest(result)
+    reg.save()
+    log.info("autotune done: tuned_tasks=%d registry=%s", len(result.tasks),
+             reg.path)
+    return AutotuneRun(result, reg, [float(x) for x in losses], pretrain_s,
+                       tune_s)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--autotune", default=None,
+                    help="target device for Moses kernel tuning")
+    ap.add_argument("--source", default=None,
+                    help="source device for --autotune transfer ('auto', "
+                         "the transfer hub, is not ported yet)")
+    ap.add_argument("--scheduler", default="serial",
+                    choices=("serial", "gradient"),
+                    help="--autotune engine; only 'serial' is ported")
+    ap.add_argument("--autotune-trials", type=int, default=48,
+                    help="per-task trial budget for --autotune")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="run the --autotune path on a tiny budget and exit "
+                         "before training")
+    ap.add_argument("--obs", default=None, metavar="DIR",
+                    help="campaign telemetry (not ported yet)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="training seed (training is not ported yet)")
+    ap.add_argument("--torch-device", default="cuda",
+                    help="where the cost model runs: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dry_run and not args.autotune:
+        ap.error("--dry-run needs --autotune DEVICE")
+    if args.autotune:
+        maybe_autotune(args.autotune, cfg, source=args.source,
+                       scheduler=args.scheduler, trials=args.autotune_trials,
+                       dry_run=args.dry_run, obs=args.obs,
+                       torch_device=args.torch_device)
+        if args.dry_run:
+            log.info("dry-run: autotune path OK; skipping training")
+            return
+    raise NotImplementedError(f"training {args.arch} (seed {args.seed}) "
+                              f"waits for the port of the LM zoo "
+                              f"(repro.models, repro.train)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,152 @@
+"""The slice as a whole: the training launcher's autotune step on
+RecurrentGemma-2B in the port, its registry read by the reference, and the
+tuned kernels of both packages at the model's real attention shape.
+
+  * `maybe_autotune(dry_run=True)` runs to the end into a temporary
+    registry; the JAX `Registry` reads it, and both packages'
+    `tuned_flash_attention` agree at (S, D) = (512, 256) with the tuned
+    blocks (float32 inputs: the reference's 1e-4).
+  * `tenset-pretrain` scores with frozen converted params, so on the
+    model's `self_attn` and `rg_lru_scan` tasks both packages measure the
+    same configs in the same order and pick the same winners.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.autotune.dataset import generate_records as j_generate  # noqa: E402
+from repro.autotune.dataset import training_task_pool as j_pool  # noqa: E402
+from repro.autotune.registry import Registry as JRegistry  # noqa: E402
+from repro.autotune.session import TuneSession as JSession  # noqa: E402
+from repro.autotune.tasks import arch_tasks as j_arch_tasks  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs.moses import CostModelConfig as JCfg  # noqa: E402
+from repro.configs.moses import MosesConfig as JMoses  # noqa: E402
+from repro.core.cost_model import MLPCostModel as JMLP  # noqa: E402
+from repro.kernels import ops as j_ops  # noqa: E402
+from repro_torch.autotune import registry as t_registry  # noqa: E402
+from repro_torch.autotune.session import TuneSession as TSession  # noqa: E402
+from repro_torch.autotune.space import config_valid  # noqa: E402
+from repro_torch.autotune.tasks import arch_tasks as t_arch_tasks  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.moses import CostModelConfig as TCfg  # noqa: E402
+from repro_torch.configs.moses import MosesConfig as TMoses  # noqa: E402
+from repro_torch.core import convert  # noqa: E402
+from repro_torch.core import cost_model as tcm  # noqa: E402
+from repro_torch.kernels import ops as t_ops  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+
+ARCH = "recurrentgemma-2b"
+
+
+@pytest.fixture
+def registry_file(tmp_path, monkeypatch):
+    """The port's default registry, pointed at a temporary file."""
+    path = str(tmp_path / "tuned_configs_torch.json")
+    monkeypatch.setattr(t_registry, "_DEFAULT_PATH", path)
+    return path
+
+
+def test_dry_run_registry_feeds_both_packages_kernels(registry_file):
+    run = train.maybe_autotune("tpu_v5e", get_config(ARCH), dry_run=True,
+                               torch_device="cpu")
+    assert run.registry.path == registry_file
+    assert [t.workload.name for t in run.result.tasks] == ["qkv_proj",
+                                                           "self_attn"]
+    assert run.pretrain_losses[-1] < run.pretrain_losses[0]
+    for t in run.result.tasks:
+        assert config_valid(t.workload, t.best_config)
+
+    jreg = JRegistry(registry_file)
+    attn = [w for w in j_arch_tasks(j_get_config(ARCH))
+            if w.name == "self_attn"][0]
+    entry = jreg.lookup("tpu_v5e", attn)
+    assert entry is not None and set(entry["knobs"]) == {
+        "block_q", "block_kv", "stages", "unroll"}
+    S, D = attn.dims
+    assert (S, D) == (512, 256)
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(1, S, D).astype(np.float32) for _ in range(3))
+    window = get_config(ARCH).local_window
+    old_j, old_t = j_ops._registry, t_ops._registry
+    j_ops.set_registry(jreg)
+    t_ops.set_registry(run.registry)
+    try:
+        want = j_ops.tuned_flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+            device="tpu_v5e", interpret=True)
+        got = t_ops.tuned_flash_attention(
+            torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+            window=window, device="tpu_v5e")
+    finally:
+        j_ops.set_registry(old_j)
+        t_ops.set_registry(old_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_cli_dry_run(registry_file):
+    train.main(["--arch", ARCH, "--smoke", "--autotune", "tpu_v5e",
+                "--dry-run", "--autotune-trials", "4", "--torch-device",
+                "cpu"])
+    assert len(t_registry.Registry(registry_file)._data["tpu_v5e"]) == 2
+
+
+@pytest.mark.parametrize("kw,waits_for", [
+    ({"source": "auto"}, "repro.hub"),
+    ({"scheduler": "gradient"}, "repro.sched"),
+    ({"obs": "telemetry"}, "repro.obs")])
+def test_unported_options_raise(kw, waits_for):
+    with pytest.raises(NotImplementedError, match=waits_for):
+        train.maybe_autotune("tpu_v5e", get_config(ARCH), dry_run=True,
+                             torch_device="cpu", **kw)
+
+
+def test_training_waits_for_the_lm_zoo():
+    with pytest.raises(NotImplementedError, match="LM zoo"):
+        train.main(["--arch", ARCH, "--smoke"])
+
+
+def test_autotune_defaults_to_the_card(registry_file, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.maybe_autotune("tpu_v5e", get_config(ARCH), dry_run=True)
+
+
+CM = dict(hidden_dims=(32, 32), batch_size=64, rank_pairs_per_batch=256)
+MOSES = dict(population_size=16, evolution_rounds=2, top_k_measure=4,
+             online_epochs=3)
+
+
+def test_tenset_pretrain_picks_the_same_configs():
+    jcfg = JMoses(cost_model=JCfg(**CM), **MOSES)
+    tcfg = TMoses(cost_model=TCfg(**CM), **MOSES)
+    jsource = j_generate(j_pool(include_archs=False)[::6], "tpu_v5p",
+                         programs_per_task=6)
+    jmodel = JMLP(jcfg.cost_model)
+    jparams, _ = jmodel.train(jmodel.init(jax.random.PRNGKey(0)), jsource,
+                              epochs=2)
+    tparams = convert.cost_model_params(
+        {k: np.asarray(v) for k, v in jparams.items()}, "cpu")
+    tsource = tcm.Records(jsource.x, jsource.y, jsource.g,
+                          jsource.raw_throughput)
+    jsession = JSession(moses_cfg=jcfg, pretrained_params=jparams,
+                        source_pool=jsource, seed=1, trials_per_task=16,
+                        cost_model=jmodel)
+    tsession = TSession(moses_cfg=tcfg, pretrained_params=tparams,
+                        source_pool=tsource, seed=1, trials_per_task=16,
+                        torch_device="cpu")
+    names = ("self_attn", "rg_lru_scan")
+    jtasks = [w for w in j_arch_tasks(j_get_config(ARCH)) if w.name in names]
+    ttasks = [w for w in t_arch_tasks(get_config(ARCH)) if w.name in names]
+    jres = jsession.run(jtasks, "tpu_v5e", "tenset-pretrain")
+    tres = tsession.run(ttasks, "tpu_v5e", "tenset-pretrain")
+    assert [t.workload.name for t in tres.tasks] == list(names)
+    for jt, tt in zip(jres.tasks, tres.tasks):
+        assert [(c.knobs, t, i) for c, t, i in jt.measured] == \
+            [(c.knobs, t, i) for c, t, i in tt.measured]
+        assert jt.best_config.knobs == tt.best_config.knobs
+    assert jres.total_search_seconds == tres.total_search_seconds

@@ -71,3 +71,29 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+@pytest.mark.parametrize("name", ["matmul", "flash_attention", "rg_lru"])
+def test_ctypes_binding_matches_the_c_entry_point(name, monkeypatch):
+    """Each wrapper declares ctypes argtypes that match its C entry point
+    parameter by parameter (a pointer passed as a 32-bit int would be cut)."""
+    import ctypes
+    import importlib
+    import re
+    import types
+
+    src = (build.CSRC_DIR / f"{name}.cu").read_text()
+    sig = re.search(r'extern "C" cudaError_t repro_(\w+)\(([^)]*)\)', src,
+                    re.S)
+    assert sig and sig.group(1) == name
+    want = []
+    for param in sig.group(2).split(","):
+        ctype = param.rsplit(None, 1)[0].replace("const ", "").strip()
+        want.append({"void*": ctypes.c_void_p, "int": ctypes.c_int,
+                     "float": ctypes.c_float}[ctype])
+    fn = types.SimpleNamespace()
+    monkeypatch.setattr(build, "load", lambda n: types.SimpleNamespace(
+        **{f"repro_{n}": fn}))
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert module._kernel.__wrapped__() is fn
+    assert fn.argtypes == want and fn.restype is ctypes.c_int
