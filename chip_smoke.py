@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (matmul, flash attention, RG-LRU scan) from
-the sources in this checkout, one nvcc each, all started together; holds
-each kernel against its plain PyTorch version on the card over its knob
-corners; then drives two paths through the port's entry points at full
-width, each with the launch counts set to 0 just before it and read just
-after:
+Builds the port's CUDA kernels (matmul in two variants, wgmma and simt;
+flash attention; RG-LRU scan) from the four sources in this checkout, one
+nvcc each, all started together; holds each kernel against its plain
+PyTorch version on the card over its knob corners, each matmul case naming
+the variant it ran; then drives two paths through the port's entry points
+at full width, each with the launch counts set to 0 just before it and read
+just after, and asserts that every GEMM of both paths ran the wgmma
+variant:
 
   ResNet-18 (the Moses main path)
     1. pre-train the paper's cost model (164 -> 512 -> 512 -> 1) on
@@ -58,7 +60,7 @@ ATTN_TOLERANCE = ("|err| <= tol + tol * |plain|, tol = 1e-4 for float32 "
                   "and 3e-2 for bf16 inputs")
 # the scan multiplies then adds, each rounded, in both versions
 SCAN_TOLERANCE = "|err| <= 1e-5 + 1e-4 * |plain|"
-KERNELS = ("matmul", "flash_attention", "rg_lru")
+SOURCES = ("matmul", "matmul_wgmma", "flash_attention", "rg_lru")
 
 
 def emit(phase: str, **kw) -> None:
@@ -132,6 +134,31 @@ def time_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int) -> float:
+    """The host's time per call of `fn`, without a synchronisation: what
+    the wrapper costs the host. Where a kernel's device time is near it,
+    the host paces the GEMM."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def plan_fields(mm, M: int, N: int, K: int, knobs: dict) -> dict:
+    """The matmul launch plan of one GEMM, as its line reports it."""
+    import torch
+    p = mm.plan(M, N, K, torch.bfloat16, knobs["block_m"], knobs["block_n"],
+                knobs["block_k"], bool(knobs["k_inner"]),
+                bool(knobs["out_bf16"]))
+    return {"variant": p.variant, "cta_tile": [p.cta_m, p.cta_n],
+            "raster_group": [p.group_m, p.group_n], "splits": p.splits,
+            "ctas": p.ctas, "pad_bytes": p.pad_bytes}
+
+
 def matmul_floor_ms(M: int, N: int, K: int, in_dtype: str, out_bf16: bool):
     """(bytes_ms, ops_ms) for one GEMM on an H100 SXM: each input read once
     and the output written once over the HBM rate, and 2MNK over the input
@@ -171,8 +198,30 @@ def bound_of(bytes_ms: float, ops_ms: float):
                                    else "operations")
 
 
+def expected_variant(dtype: str, K: int, knobs: dict) -> str:
+    """The matmul variant the stated rule gives: simt for float32 inputs
+    and for k_inner=0 with a bf16 output whose rounding unit bk splits a
+    16-deep wgmma step (bk % 16 != 0 and bk < K); wgmma otherwise."""
+    bk = min(knobs["block_k"], K)
+    rounds = not knobs["k_inner"] and knobs["out_bf16"]
+    if dtype == "float32" or (rounds and bk % 16 != 0 and bk < K):
+        return "simt"
+    return "wgmma"
+
+
+def ran_variant(mm, call):
+    """(result, the variant whose launch count `call` raised)."""
+    before = dict(mm.matmul.launches_by_variant)
+    out = call()
+    moved = [v for v, n in mm.matmul.launches_by_variant.items()
+             if n != before[v]]
+    assert len(moved) == 1, (before, mm.matmul.launches_by_variant)
+    return out, moved[0]
+
+
 def kernel_check(mm, torch_device: str) -> dict:
-    """Every case: CUDA matmul vs matmul_plain on the card."""
+    """Every case: CUDA matmul vs matmul_plain on the card, and the variant
+    it ran against the stated rule (`expected_variant`)."""
     import torch
     gen = torch.Generator(device=torch_device).manual_seed(0)
     cases = []
@@ -184,24 +233,39 @@ def kernel_check(mm, torch_device: str) -> dict:
     cases.append(((200, 136, 72), (8, 8, 8)))          # smallest knobs
     cases.append(((1, 1000, 512), (8, 8, 8)))          # M = 1 (fc)
     cases.append(((1, 1000, 512), (1024, 1024, 1024)))
-    n, worst = 0, 0.0
+    # the wgmma variant's edges: K = 147 (padding), M = 49 with split-K,
+    # rounding boundaries inside a 64-deep stage
+    cases.append(((12544, 64, 147), (128, 64, 256)))   # ResNet-18 stem
+    cases.append(((49, 512, 4608), (64, 128, 128)))    # split-K
+    for bk in (16, 32, 48):
+        cases.append(((128, 256, 192), (64, 64, bk)))
+    n, worst, ran = 0, 0.0, []
     for (M, N, K), (bm, bn, bk) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             a = torch.randn((M, K), generator=gen, device=torch_device).to(
                 dtype)
             b = torch.randn((K, N), generator=gen, device=torch_device).to(
                 dtype)
+            name = str(dtype).split(".")[1]
             for k_inner in (True, False):
                 for out_bf16 in (False, True):
                     knobs = dict(block_m=bm, block_n=bn, block_k=bk,
                                  k_inner=k_inner, out_bf16=out_bf16)
-                    got = mm.matmul(a, b, **knobs)
+                    got, variant = ran_variant(
+                        mm, lambda: mm.matmul(a, b, **knobs))
                     want = mm.matmul_plain(a, b, **knobs)
-                    worst = max(worst, check_close(
-                        got, want, out_bf16, f"{(M, N, K)} {dtype} {knobs}"))
+                    what = f"{(M, N, K)} {name} {knobs}"
+                    worst = max(worst, check_close(got, want, out_bf16, what))
+                    assert variant == expected_variant(name, K, knobs), \
+                        (what, variant)
+                    out = "bf16" if out_bf16 else "f32"
+                    ran.append(f"{M}x{N}x{K}/{bm}x{bn}x{bk}/{name}/"
+                               f"k{int(k_inner)}/o{out}:{variant}")
                     n += 1
     torch.cuda.synchronize()
-    return {"cases": n, "max_abs_err": worst, "timed": kouter_timing(mm)}
+    by_variant = {v: sum(r.endswith(v) for r in ran) for v in ("wgmma", "simt")}
+    return {"cases": n, "by_variant": by_variant, "max_abs_err": worst,
+            "ran": ran, "timed": kouter_timing(mm)}
 
 
 def kouter_timing(mm) -> list:
@@ -218,8 +282,9 @@ def kouter_timing(mm) -> list:
     for k_inner in (False, True):
         knobs = dict(block_m=128, block_n=128, block_k=128, k_inner=k_inner,
                      out_bf16=True)
+        _, variant = ran_variant(mm, lambda: mm.matmul(a, b, **knobs))
         rows.append({
-            "dims": [M, N, K], "knobs": knobs,
+            "dims": [M, N, K], "knobs": knobs, "variant": variant,
             "ms": time_ms(lambda: mm.matmul(a, b, **knobs), reps=7, inner=5),
             "plain_ms": time_ms(lambda: mm.matmul_plain(a, b, **knobs),
                                 reps=3, inner=1),
@@ -368,6 +433,8 @@ def drive_main_path(torch_device: str, moses_cfg, programs_per_task: int,
 def reset_launches(kernels) -> None:
     for k in kernels:
         k.launches = 0
+        for v in getattr(k, "launches_by_variant", {}):
+            k.launches_by_variant[v] = 0
 
 
 def drive_lm_path(torch_device: str, arch: str, trials: int):
@@ -445,6 +512,8 @@ def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
         library = lambda: torch.matmul(a, b)  # noqa: E731
         M, N, K = wl.dims
         floor = matmul_floor_ms(M, N, K, "bfloat16", kw["out_bf16"])
+        line.update(plan_fields(mm, M, N, K, kw))
+        line["host_us"] = host_us(kernel, 5 if big else 20)
     elif wl.kind == "attention":
         q, k, v = args["q"], args["k"], args["v"]
         kw = dict(causal=args["causal"], window=args["window"],
@@ -483,6 +552,7 @@ def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
     line["library_ms"] = (None if library is None
                           else time_ms(library, *reps["library"]))
     line["bound_ms"], line["bound_by"] = bound_of(*floor)
+    line["bound_share"] = line["bound_ms"] / line["ms"]
     line["bytes_ms"], line["ops_ms"] = floor
     line["max_abs_err"] = err
     return line
@@ -518,8 +588,8 @@ def build_all(build) -> dict:
         return name, {"seconds": time.perf_counter() - t0,
                       "library": str(lib.relative_to(ROOT)), "ptxas": ptxas}
 
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        return dict(ex.map(one, KERNELS))
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        return dict(ex.map(one, SOURCES))
 
 
 def main() -> int:
@@ -578,10 +648,15 @@ def run_phases(torch, tmp: str) -> int:
     summary, registry, result, gemms = drive_main_path(
         "cuda", moses_cfg, programs_per_task=24, epochs=10, trials=32,
         registry_path=str(Path(tmp) / "resnet18.json"), tasks=tasks)
-    launches = {"matmul": mm.matmul.launches}
-    emit("main_path", launches=launches["matmul"], **summary)
+    launches = {"matmul": mm.matmul.launches,
+                "by_variant": dict(mm.matmul.launches_by_variant)}
+    emit("main_path", launches=launches["matmul"],
+         launches_by_variant=launches["by_variant"], **summary)
     assert launches["matmul"] >= len(tasks) == 12, \
         f"matmul launched {launches['matmul']} times"
+    # every ResNet-18 GEMM ran the tensor-core variant
+    assert launches["by_variant"]["simt"] == 0 and \
+        launches["by_variant"]["wgmma"] == launches["matmul"], launches
     for t in result.tasks:
         assert config_valid(t.workload, t.best_config), t
 
@@ -607,8 +682,10 @@ def run_phases(torch, tmp: str) -> int:
                                            knobs["out_bf16"])
         bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
         emit("gemm", name=wl.name, dims=[M, N, K], count=wl.count,
-             knobs=cfg, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+             knobs=cfg, **plan_fields(mm, M, N, K, knobs), ms=ms,
+             host_us=host_us(lambda: mm.matmul(a, b, **knobs), 20),
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             bound_by=bound_by, bound_share=bound_ms / ms, max_abs_err=err,
              simulated_gflops=entry["throughput_gflops"])
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
@@ -624,7 +701,9 @@ def run_phases(torch, tmp: str) -> int:
     lm_launches = {"matmul": mm.matmul.launches,
                    "flash_attention": fa.flash_attention.launches,
                    "rg_lru": lru.rg_lru.launches}
+    lm_by_variant = dict(mm.matmul.launches_by_variant)
     emit("lm_path", arch=cfg.name, launches=lm_launches,
+         matmul_launches_by_variant=lm_by_variant,
          pretrain_seconds=lm_run.pretrain_seconds,
          pretrain_loss_first=lm_run.pretrain_losses[0],
          pretrain_loss_last=lm_run.pretrain_losses[-1],
@@ -636,6 +715,9 @@ def run_phases(torch, tmp: str) -> int:
     assert lm_launches["flash_attention"] >= 1, lm_launches
     assert lm_launches["rg_lru"] >= 1, lm_launches
     assert lm_launches["matmul"] >= n_gemm, lm_launches
+    # every RecurrentGemma-2B GEMM ran the tensor-core variant
+    assert lm_by_variant["simt"] == 0 and \
+        lm_by_variant["wgmma"] == lm_launches["matmul"], lm_by_variant
     for t in lm_run.result.tasks:
         assert config_valid(t.workload, t.best_config), t
 
@@ -658,11 +740,16 @@ def run_phases(torch, tmp: str) -> int:
     # GEMMs (one launch each); the other two are their one task's
     entries = [{
         "name": "matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+        "sources": {"wgmma": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+                    "simt": "src/repro_torch/kernels/csrc/matmul.cu"},
         "replaces": f"{TPU_KERNEL}:99",
         "tpu_kernel": f"{TPU_KERNEL}:matmul (pallas_call at :99, k_inner=1,"
                       f" and :115, k_inner=0)",
         "launches": launches["matmul"] + lm_launches["matmul"],
+        "launches_by_variant": {
+            v: launches["by_variant"][v] + lm_by_variant[v]
+            for v in ("wgmma", "simt")},
         "launches_by_path": {"resnet18": launches["matmul"],
                              "recurrentgemma-2b": lm_launches["matmul"]},
         "checked": True, "max_abs_err": worst,

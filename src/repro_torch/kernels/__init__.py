@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels for the compute hot spots Moses tunes.
 
-  matmul.py           tiled GEMM (CUDA C++, csrc/matmul.cu), the port of the
-                      Pallas kernel `repro/kernels/matmul.py`
+  matmul.py           tiled GEMM, the port of the Pallas kernel
+                      `repro/kernels/matmul.py`: CUDA C++ on the tensor
+                      cores (csrc/matmul_wgmma.cu) for bf16 inputs, on the
+                      CUDA cores (csrc/matmul.cu) for the rest
   flash_attention.py  causal / sliding-window flash attention (CUDA C++,
                       csrc/flash_attention.cu), the port of
                       `repro/kernels/flash_attention.py`

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exports a plain C interface and is compiled by `nvcc`
 into `build/repro_torch/<name>-<hash>.so` at the repository root, at first
-use, then loaded with `ctypes`. The hash covers the source and the flags, so
-an edited source builds anew. `nvcc` is found on PATH or under CUDA_HOME.
-Nothing here runs at import time: the CPU tests import every module.
+use, then loaded with `ctypes`. The hash covers the source, the headers
+beside it and the flags, so an edited source or header builds anew. `nvcc`
+is found on PATH or under CUDA_HOME. Nothing here runs at import time: the
+CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -38,9 +39,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of `csrc/<name>.cu` lives for its current content."""
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where the build of `csrc/<name>.cu` lives for its current content:
+    the source, every header in `csrc/` (`*.cuh`) that a source may
+    include, and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

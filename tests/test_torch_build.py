@@ -65,6 +65,20 @@ def test_library_path_follows_source_content(tmp_path, monkeypatch):
     assert first.parent == build.BUILD_DIR and first.name.startswith("k-")
 
 
+def test_library_path_follows_headers_and_flags(tmp_path, monkeypatch):
+    """A changed `csrc/*.cuh` header or a changed flag builds anew, so a
+    stale library is never reused."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"')
+    (tmp_path / "common.cuh").write_text("// one")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// two")
+    second = build.library_path("k")
+    assert second != first
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lcuda",))
+    assert build.library_path("k") not in (first, second)
+
+
 def test_missing_nvcc_raises(monkeypatch):
     import torch.utils.cpp_extension as ext
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
@@ -73,10 +87,12 @@ def test_missing_nvcc_raises(monkeypatch):
         build._nvcc()
 
 
-@pytest.mark.parametrize("name", ["matmul", "flash_attention", "rg_lru"])
+@pytest.mark.parametrize("name", ["matmul", "matmul_wgmma", "flash_attention",
+                                  "rg_lru"])
 def test_ctypes_binding_matches_the_c_entry_point(name, monkeypatch):
     """Each wrapper declares ctypes argtypes that match its C entry point
-    parameter by parameter (a pointer passed as a 32-bit int would be cut)."""
+    parameter by parameter (a pointer passed as a 32-bit int would be cut).
+    Both matmul sources are bound in `kernels/matmul.py`."""
     import ctypes
     import importlib
     import re
@@ -94,6 +110,11 @@ def test_ctypes_binding_matches_the_c_entry_point(name, monkeypatch):
     fn = types.SimpleNamespace()
     monkeypatch.setattr(build, "load", lambda n: types.SimpleNamespace(
         **{f"repro_{n}": fn}))
-    module = importlib.import_module(f"repro_torch.kernels.{name}")
-    assert module._kernel.__wrapped__() is fn
+    if name == "matmul_wgmma":
+        module = importlib.import_module("repro_torch.kernels.matmul")
+        bound = module._wgmma_kernel
+    else:
+        module = importlib.import_module(f"repro_torch.kernels.{name}")
+        bound = module._kernel
+    assert bound.__wrapped__() is fn
     assert fn.argtypes == want and fn.restype is ctypes.c_int
