@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (matmul in two variants, wgmma and simt;
-flash attention; RG-LRU scan) from the four sources in this checkout, one
-nvcc each, all started together; holds each kernel against its plain
-PyTorch version on the card over its knob corners, each matmul case naming
-the variant it ran; then drives two paths through the port's entry points
-at full width, each with the launch counts set to 0 just before it and read
-just after, and asserts that every GEMM of both paths ran the wgmma
-variant:
+Builds the port's CUDA kernels (matmul and flash attention in two variants
+each, wgmma and simt; RG-LRU scan) from the five sources in this checkout,
+one nvcc each, all started together; holds each kernel against its plain
+PyTorch version on the card over its knob corners, each matmul and
+attention case naming the variant it ran; then drives two paths through the
+port's entry points at full width, each with the launch counts set to 0
+just before it and read just after, and asserts that every GEMM of both
+paths, and the attention, ran the wgmma variant:
 
   ResNet-18 (the Moses main path)
     1. pre-train the paper's cost model (164 -> 512 -> 512 -> 1) on
@@ -27,11 +27,18 @@ variant:
        each task's kernel with its tuned config at the model's real shapes
        on bf16 operands, and each is checked and timed.
 
+Kernel times come two ways: `ms`, CUDA events around calls launched back
+to back (where a kernel is faster than its wrapper's host work, that is the
+host's time), and `device_ms`, the same calls captured into one CUDA graph
+and replayed, which the host cannot pace. The library call gets both too.
+
 Every phase prints one JSON line. The line before the last is the card's
 name and power limit as nvidia-smi prints them; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, and prints no result, without
 a CUDA card or outside a checkout of the repository. Imports nothing of JAX.
 """
+import collections
+import dataclasses
 import json
 import os
 import statistics
@@ -60,7 +67,8 @@ ATTN_TOLERANCE = ("|err| <= tol + tol * |plain|, tol = 1e-4 for float32 "
                   "and 3e-2 for bf16 inputs")
 # the scan multiplies then adds, each rounded, in both versions
 SCAN_TOLERANCE = "|err| <= 1e-5 + 1e-4 * |plain|"
-SOURCES = ("matmul", "matmul_wgmma", "flash_attention", "rg_lru")
+SOURCES = ("matmul", "matmul_wgmma", "flash_attention",
+           "flash_attention_wgmma", "rg_lru")
 
 
 def emit(phase: str, **kw) -> None:
@@ -134,10 +142,43 @@ def time_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, inner: int) -> float:
+    """Median over `reps` of the CUDA-event time of one replay of a CUDA
+    graph that holds `inner` calls of `fn`, divided by `inner`: the
+    device's time per call, which the host's launch work cannot pace.
+    Inputs stay warm in L2 between calls. `fn` must be capturable: no
+    synchronisation, no host read of device memory."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    graph.reset()
+    return statistics.median(times)
+
+
 def host_us(fn, calls: int) -> float:
     """The host's time per call of `fn`, without a synchronisation: what
-    the wrapper costs the host. Where a kernel's device time is near it,
-    the host paces the GEMM."""
+    the wrapper costs the host. Where a kernel's device time is below it,
+    the host paces the back-to-back reading."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -209,14 +250,20 @@ def expected_variant(dtype: str, K: int, knobs: dict) -> str:
     return "wgmma"
 
 
-def ran_variant(mm, call):
-    """(result, the variant whose launch count `call` raised)."""
-    before = dict(mm.matmul.launches_by_variant)
+def ran_variant(counts: dict, call):
+    """(result, the variant whose count in `counts`, a wrapper's
+    `launches_by_variant`, `call` raised)."""
+    before = dict(counts)
     out = call()
-    moved = [v for v, n in mm.matmul.launches_by_variant.items()
-             if n != before[v]]
-    assert len(moved) == 1, (before, mm.matmul.launches_by_variant)
+    moved = [v for v, n in counts.items() if n != before[v]]
+    assert len(moved) == 1, (before, counts)
     return out, moved[0]
+
+
+def expected_attention_variant(dtype: str, D: int) -> str:
+    """The flash attention variant the stated rule gives: wgmma for bf16
+    inputs with D % 8 == 0 (TMA's 16-byte rows), simt otherwise."""
+    return "wgmma" if dtype == "bfloat16" and D % 8 == 0 else "simt"
 
 
 def kernel_check(mm, torch_device: str) -> dict:
@@ -252,7 +299,8 @@ def kernel_check(mm, torch_device: str) -> dict:
                     knobs = dict(block_m=bm, block_n=bn, block_k=bk,
                                  k_inner=k_inner, out_bf16=out_bf16)
                     got, variant = ran_variant(
-                        mm, lambda: mm.matmul(a, b, **knobs))
+                        mm.matmul.launches_by_variant,
+                        lambda: mm.matmul(a, b, **knobs))
                     want = mm.matmul_plain(a, b, **knobs)
                     what = f"{(M, N, K)} {name} {knobs}"
                     worst = max(worst, check_close(got, want, out_bf16, what))
@@ -271,7 +319,8 @@ def kernel_check(mm, torch_device: str) -> dict:
 def kouter_timing(mm) -> list:
     """Both accumulation orders timed at one stated shape, RecurrentGemma-
     2B's out_proj (512 x 2560 x 2560), tile 128 x 128 x 128, bf16 operands
-    and output, beside the plain version and torch.matmul."""
+    and output, back to back and from a CUDA graph, beside the plain
+    version and torch.matmul."""
     import torch
     M, N, K = 512, 2560, 2560
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -282,14 +331,19 @@ def kouter_timing(mm) -> list:
     for k_inner in (False, True):
         knobs = dict(block_m=128, block_n=128, block_k=128, k_inner=k_inner,
                      out_bf16=True)
-        _, variant = ran_variant(mm, lambda: mm.matmul(a, b, **knobs))
+        _, variant = ran_variant(mm.matmul.launches_by_variant,
+                                 lambda: mm.matmul(a, b, **knobs))
         rows.append({
             "dims": [M, N, K], "knobs": knobs, "variant": variant,
             "ms": time_ms(lambda: mm.matmul(a, b, **knobs), reps=7, inner=5),
+            "device_ms": device_ms(lambda: mm.matmul(a, b, **knobs), reps=7,
+                                   inner=5),
             "plain_ms": time_ms(lambda: mm.matmul_plain(a, b, **knobs),
                                 reps=3, inner=1),
             "library_ms": time_ms(lambda: torch.matmul(a, b), reps=7,
                                   inner=10),
+            "library_device_ms": device_ms(lambda: torch.matmul(a, b),
+                                           reps=7, inner=10),
             "bound_ms": bound_ms, "bound_by": bound_by})
     return rows
 
@@ -316,7 +370,17 @@ def attention_check(fa, torch_device: str) -> dict:
     for D in (64, 80, 120, 128, 192, 256):               # the LM zoo's D
         cases.append((2, 512, D, True, 0, 128, 256, None))
     cases.append((12, 128, 64, False, 0, 64, 128, None))  # BERT-base
-    n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    # the wgmma variant's 128-row q tile (B * ceil(S / 128) >= 132): two
+    # consumer warpgroups, D padded (80), a window, no causal mask
+    cases.append((40, 512, 256, True, 0, 256, 512, None))
+    cases.append((36, 512, 64, True, 100, 128, 128, None))
+    cases.append((33, 512, 80, False, 0, 128, 128, None))
+    # the same with ragged S (300 = 2 x 128 + 44), causal or windowed
+    cases.append((45, 300, 128, True, 0, 128, 128, None))
+    cases.append((45, 300, 120, False, 50, 128, 128, None))
+    cases.append((2, 100, 36, True, 16, 32, 32, None))   # D % 8 != 0: simt
+    worst, ran = {"float32": 0.0, "bfloat16": 0.0}, []
+    by_variant = collections.Counter(wgmma=0, simt=0)
     for B, S, D, causal, window, bq, bkv, scale in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((B, S, D), generator=gen,
@@ -324,15 +388,24 @@ def attention_check(fa, torch_device: str) -> dict:
                        for _ in range(3))
             kw = dict(causal=causal, window=window, block_q=bq,
                       block_kv=bkv, scale=scale)
-            got = fa.flash_attention(q, k, v, **kw)
+            got, variant = ran_variant(
+                fa.flash_attention.launches_by_variant,
+                lambda: fa.flash_attention(q, k, v, **kw))
             want = fa.flash_attention_plain(q, k, v, **kw)
             name = str(dtype).split(".")[1]
             tol = ATTN_TOL[name]
+            what = f"attention {(B, S, D)} {name} {kw}"
             worst[name] = max(worst[name], check_allclose(
-                got, want, tol, tol, f"attention {(B, S, D)} {name} {kw}"))
-            n += 1
+                got, want, tol, tol, what))
+            assert variant == expected_attention_variant(name, D), \
+                (what, variant)
+            by_variant[variant] += 1
+            p = fa.plan(B, S, D, dtype, bq, bkv, causal, window)
+            ran.append(f"{B}x{S}x{D}/c{int(causal)}w{window}/{bq}x{bkv}/"
+                       f"{name}:{variant}/q{p.q_tile}")
     torch.cuda.synchronize()
-    return {"cases": n, "max_abs_err": worst}
+    return {"cases": len(ran), "by_variant": by_variant,
+            "max_abs_err": worst, "ran": ran}
 
 
 def scan_inputs(B: int, S: int, W: int, dtype, gen, torch_device: str):
@@ -360,15 +433,21 @@ def scan_check(lru, torch_device: str) -> dict:
               ((2, 100, 300), 32, 128, bf16),       # bf16 inputs
               ((1, 2048, 2560), 1024, 1024, bf16),
               ((1, 12544, 32), 256, 128, f32)]      # MobileNet dw3x3_32_112
-    worst = 0.0
+    worst, ran = 0.0, []
+    by_route = collections.Counter(tma=0, ldg=0)
     for (B, S, W), ck, bw, dtype in cases:
         a, x = scan_inputs(B, S, W, dtype, gen, torch_device)
         got = lru.rg_lru(a, x, chunk=ck, block_w=bw)
         want = lru.rg_lru_plain(a, x, chunk=ck, block_w=bw)
         worst = max(worst, check_allclose(
             got, want, 1e-4, 1e-5, f"scan {(B, S, W)} {dtype} {(ck, bw)}"))
+        p = lru.plan(B, S, W, dtype, ck, bw)
+        by_route[p.route] += 1
+        ran.append(f"{B}x{S}x{W}/{str(dtype).split('.')[1]}:{p.route}/"
+                   f"l{p.lanes}/c{p.ctas}")
     torch.cuda.synchronize()
-    return {"cases": len(cases), "max_abs_err": worst}
+    return {"cases": len(cases), "by_route": by_route, "max_abs_err": worst,
+            "ran": ran}
 
 
 def drive_main_path(torch_device: str, moses_cfg, programs_per_task: int,
@@ -490,7 +569,9 @@ def drive_lm_path(torch_device: str, arch: str, trials: int):
 def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
     """Check one LM task's tuned output against the plain version and time
     the kernel, the plain version and, where one exists, the one PyTorch
-    call that computes the same function. lm_head gets fewer repeats."""
+    call that computes the same function, back to back (`ms`) and, except
+    the plain version, replayed from a CUDA graph (`device_ms`). lm_head
+    gets fewer repeats."""
     import torch
     import torch.nn.functional as F
     mm, fa, lru = modules
@@ -535,6 +616,10 @@ def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q[None], k[None], v[None], attn_mask=band)
         floor = attention_floor_ms(B, S, D, "bfloat16", True)
+        line.update(dataclasses.asdict(fa.plan(
+            B, S, D, q.dtype, kw["block_q"], kw["block_kv"], kw["causal"],
+            kw["window"])))
+        line["host_us"] = host_us(kernel, 20)
     else:
         a, x = args["a"], args["x"]
         kw = dict(chunk=knobs["chunk"], block_w=knobs["block_w"])
@@ -547,10 +632,15 @@ def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
                                 "recurrence")
         B, S, W = a.shape
         floor = scan_floor_ms(B, S, W, "bfloat16")
+        line.update(dataclasses.asdict(lru.plan(B, S, W, a.dtype, **kw)))
+        line["host_us"] = host_us(kernel, 20)
     line["ms"] = time_ms(kernel, *reps["kernel"])
+    line["device_ms"] = device_ms(kernel, *reps["kernel"])
     line["plain_ms"] = time_ms(plain, *reps["plain"])
     line["library_ms"] = (None if library is None
                           else time_ms(library, *reps["library"]))
+    line["library_device_ms"] = (None if library is None
+                                 else device_ms(library, *reps["library"]))
     line["bound_ms"], line["bound_by"] = bound_of(*floor)
     line["bound_share"] = line["bound_ms"] / line["ms"]
     line["bytes_ms"], line["ops_ms"] = floor
@@ -584,7 +674,8 @@ def build_all(build) -> dict:
         lib = build.build(name)
         ptxas = [ln.strip() for ln in
                  lib.with_suffix(".so.log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
         return name, {"seconds": time.perf_counter() - t0,
                       "library": str(lib.relative_to(ROOT)), "ptxas": ptxas}
 
@@ -661,7 +752,8 @@ def run_phases(torch, tmp: str) -> int:
         assert config_valid(t.workload, t.best_config), t
 
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+              "library_ms": 0.0, "device_ms": 0.0, "library_device_ms": 0.0,
+              "bytes_ms": 0.0, "ops_ms": 0.0}
     worst = 0.0
     for wl, a, b, out in gemms:
         M, N, K = wl.dims
@@ -678,18 +770,26 @@ def run_phases(torch, tmp: str) -> int:
         plain_ms = time_ms(lambda: mm.matmul_plain(a, b, **knobs), reps=3,
                            inner=1)
         library_ms = time_ms(lambda: torch.matmul(a, b), reps=7, inner=10)
+        dev_ms = device_ms(lambda: mm.matmul(a, b, **knobs), reps=7,
+                           inner=10)
+        library_dev_ms = device_ms(lambda: torch.matmul(a, b), reps=7,
+                                   inner=10)
         bytes_ms, ops_ms = matmul_floor_ms(M, N, K, "bfloat16",
                                            knobs["out_bf16"])
         bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
         emit("gemm", name=wl.name, dims=[M, N, K], count=wl.count,
              knobs=cfg, **plan_fields(mm, M, N, K, knobs), ms=ms,
+             device_ms=dev_ms,
              host_us=host_us(lambda: mm.matmul(a, b, **knobs), 20),
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library_device_ms=library_dev_ms, bound_ms=bound_ms,
              bound_by=bound_by, bound_share=bound_ms / ms, max_abs_err=err,
              simulated_gflops=entry["throughput_gflops"])
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
         totals["library_ms"] += library_ms
+        totals["device_ms"] += dev_ms
+        totals["library_device_ms"] += library_dev_ms
         totals["bound_ms"] += bound_ms
         totals["bytes_ms"] += bytes_ms
         totals["ops_ms"] += ops_ms
@@ -702,8 +802,10 @@ def run_phases(torch, tmp: str) -> int:
                    "flash_attention": fa.flash_attention.launches,
                    "rg_lru": lru.rg_lru.launches}
     lm_by_variant = dict(mm.matmul.launches_by_variant)
+    fa_by_variant = dict(fa.flash_attention.launches_by_variant)
     emit("lm_path", arch=cfg.name, launches=lm_launches,
          matmul_launches_by_variant=lm_by_variant,
+         flash_attention_launches_by_variant=fa_by_variant,
          pretrain_seconds=lm_run.pretrain_seconds,
          pretrain_loss_first=lm_run.pretrain_losses[0],
          pretrain_loss_last=lm_run.pretrain_losses[-1],
@@ -718,6 +820,10 @@ def run_phases(torch, tmp: str) -> int:
     # every RecurrentGemma-2B GEMM ran the tensor-core variant
     assert lm_by_variant["simt"] == 0 and \
         lm_by_variant["wgmma"] == lm_launches["matmul"], lm_by_variant
+    # the attention ran the tensor-core variant
+    assert fa_by_variant["simt"] == 0 and \
+        fa_by_variant["wgmma"] == lm_launches["flash_attention"], \
+        fa_by_variant
     for t in lm_run.result.tasks:
         assert config_valid(t.workload, t.best_config), t
 
@@ -728,10 +834,13 @@ def run_phases(torch, tmp: str) -> int:
         emit("lm_task", **line)
         if wl.kind == "matmul":
             worst = max(worst, line["max_abs_err"])
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "bytes_ms", "ops_ms"):
+            for key in ("ms", "plain_ms", "library_ms", "device_ms",
+                        "library_device_ms", "bound_ms", "bytes_ms",
+                        "ops_ms"):
                 totals[key] += line[key]
         else:
+            # both spread over the SMs: at least 80 CTAs
+            assert line["ctas"] >= 80, line
             per_kernel["flash_attention" if wl.kind == "attention"
                        else "rg_lru"] = line
     torch.cuda.synchronize()
@@ -753,23 +862,31 @@ def run_phases(torch, tmp: str) -> int:
         "launches_by_path": {"resnet18": launches["matmul"],
                              "recurrentgemma-2b": lm_launches["matmul"]},
         "checked": True, "max_abs_err": worst,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "ms": totals["ms"], "device_ms": totals["device_ms"],
+        "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": bound_of(totals["bytes_ms"], totals["ops_ms"])[1],
-        "library_ms": totals["library_ms"]}]
-    for name, src, replaces in (
-            ("flash_attention", "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:100"),
-            ("rg_lru", "rg_lru.cu", "src/repro/kernels/rg_lru.py:57")):
+        "library_ms": totals["library_ms"],
+        "library_device_ms": totals["library_device_ms"]}]
+    csrc = "src/repro_torch/kernels/csrc"
+    for name, src, extra in (
+            ("flash_attention", "flash_attention_wgmma.cu", {
+                "replaces": "src/repro/kernels/flash_attention.py:100",
+                "sources": {"wgmma": f"{csrc}/flash_attention_wgmma.cu",
+                            "simt": f"{csrc}/flash_attention.cu"},
+                "launches_by_variant": fa_by_variant}),
+            ("rg_lru", "rg_lru.cu",
+             {"replaces": "src/repro/kernels/rg_lru.py:57"})):
         line = per_kernel[name]
         entries.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": lm_launches[name],
+            "name": name, "route": "cuda", "source": f"{csrc}/{src}",
+            **extra, "launches": lm_launches[name],
             "checked": True, "max_abs_err": line["max_abs_err"],
-            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "ms": line["ms"], "device_ms": line["device_ms"],
+            "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
-            "library_ms": line["library_ms"]})
+            "library_ms": line["library_ms"],
+            "library_device_ms": line["library_device_ms"]})
     print(json.dumps({"kernels": entries}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -88,11 +88,12 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["matmul", "matmul_wgmma", "flash_attention",
-                                  "rg_lru"])
+                                  "flash_attention_wgmma", "rg_lru"])
 def test_ctypes_binding_matches_the_c_entry_point(name, monkeypatch):
     """Each wrapper declares ctypes argtypes that match its C entry point
     parameter by parameter (a pointer passed as a 32-bit int would be cut).
-    Both matmul sources are bound in `kernels/matmul.py`."""
+    Both matmul sources are bound in `kernels/matmul.py`, both flash
+    attention sources in `kernels/flash_attention.py`."""
     import ctypes
     import importlib
     import re
@@ -110,8 +111,9 @@ def test_ctypes_binding_matches_the_c_entry_point(name, monkeypatch):
     fn = types.SimpleNamespace()
     monkeypatch.setattr(build, "load", lambda n: types.SimpleNamespace(
         **{f"repro_{n}": fn}))
-    if name == "matmul_wgmma":
-        module = importlib.import_module("repro_torch.kernels.matmul")
+    if name.endswith("_wgmma"):
+        module = importlib.import_module(
+            f"repro_torch.kernels.{name[:-len('_wgmma')]}")
         bound = module._wgmma_kernel
     else:
         module = importlib.import_module(f"repro_torch.kernels.{name}")
