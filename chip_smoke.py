@@ -7,10 +7,10 @@ Builds the port's CUDA kernels (matmul and flash attention in two variants
 each, wgmma and simt; RG-LRU scan) from the five sources in this checkout,
 one nvcc each, all started together; holds each kernel against its plain
 PyTorch version on the card over its knob corners, each matmul and
-attention case naming the variant it ran; then drives two paths through the
-port's entry points at full width, each with the launch counts set to 0
-just before it and read just after, and asserts that every GEMM of both
-paths, and the attention, ran the wgmma variant:
+attention case naming the variant it ran; then drives three paths through
+the port's entry points at full width, each with the launch counts set to 0
+just before it and read just after, and asserts that every GEMM of the
+first two paths, and their attention, ran the wgmma variant:
 
   ResNet-18 (the Moses main path)
     1. pre-train the paper's cost model (164 -> 512 -> 512 -> 1) on
@@ -26,6 +26,19 @@ paths, and the attention, ran the wgmma variant:
     2. `ops.tuned_matmul` / `tuned_flash_attention` / `tuned_rg_lru` launch
        each task's kernel with its tuned config at the model's real shapes
        on bf16 operands, and each is checked and timed.
+
+A third path serves the full RecurrentGemma-2B config (26 layers, d_model
+2560, vocab 256000; float32 params from seed 0, bf16 activations) with
+`serve.Engine(batch_slots=4, profile_kernels=True)`: 8 greedy requests of
+512 prompt tokens and 32 new tokens, in two waves, with the launch counts
+set to 0 before the engine is made and read after `generate`. The engine's
+kernel probe launches each kernel once per config (float32 probe inputs:
+matmul and attention `simt`, the scan `tma`); each is then held against
+its plain version at the probe's shapes. The `serve_path` line gives the
+prefill and step seconds, tokens/s, peak memory and the data-sheet bounds;
+`serve_consistency` holds decode's logits to `forward`'s at float32
+activations for prompts of 512 and 2048 (= local_window, so the ring
+wraps).
 
 Kernel times come two ways: `ms`, CUDA events around calls launched back
 to back (where a kernel is faster than its wrapper's host work, that is the
@@ -648,6 +661,324 @@ def lm_task_line(wl, args, out, knobs: dict, modules) -> dict:
     return line
 
 
+def tree_numel_bytes(tree) -> tuple:
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(tree)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def serve_bounds(cfg, n_params: int, n_embed: int, batch: int,
+                 prompt: int, max_len: int) -> dict:
+    """Data-sheet bounds of the serve path on an H100 SXM (bf16 weights):
+    prefill of one wave, 2 FLOPs per non-embedding weight per token, the
+    causal local attention (QK^T and PV over the kept pairs) and the tied
+    logits of the last position, over the bf16 peak, or every weight read
+    once; one decode step, every weight read once in bf16 (the tied
+    embedding serves the gather and the logits) and the caches read once
+    (bf16 KV, float32 RG-LRU carry, bf16 conv taps) over the HBM rate, or
+    its 2 * params * batch FLOPs over the peak; each the larger."""
+    from repro_torch.models import cache_length
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    n_attn, n_rec = kinds.count("attention"), kinds.count("recurrent")
+    w = min(prompt, cfg.local_window)
+    kept = sum(min(t + 1, w) for t in range(prompt))  # (q, k) pairs a row
+    attn_flops = (4.0 * batch * kept * cfg.num_heads * cfg.resolved_head_dim
+                  * n_attn)
+    prefill_flops = (2.0 * (n_params - n_embed) * batch * prompt + attn_flops
+                     + 2.0 * batch * cfg.d_model * cfg.padded_vocab_size)
+    prefill = bound_of(n_params * 2 / HBM_BYTES_PER_S * 1e3,
+                       prefill_flops / PEAK_FLOPS["bfloat16"] * 1e3)
+    lru = cfg.lru_width or cfg.d_model
+    cache_bytes = batch * (
+        n_attn * cache_length(cfg, max_len) * cfg.num_kv_heads
+        * cfg.resolved_head_dim * 2 * 2
+        + n_rec * lru * (4 + (cfg.conv_width - 1) * 2))
+    step_bytes = n_params * 2 + cache_bytes
+    step = bound_of(step_bytes / HBM_BYTES_PER_S * 1e3,
+                    2.0 * n_params * batch / PEAK_FLOPS["bfloat16"] * 1e3)
+    return {"prefill_tflop": prefill_flops / 1e12,
+            "prefill_bound_ms": prefill[0], "prefill_bound_by": prefill[1],
+            "step_gbytes": step_bytes / 1e9, "step_bound_ms": step[0],
+            "step_bound_by": step[1]}
+
+
+def scan_choice(torch_device: str, B: int, S: int, W: int) -> dict:
+    """The model's log-step scan (`models.recurrent.linear_scan`) against a
+    sequential float32 loop (`kernels.ref.rg_lru_ref`) at the serve
+    prefill's shape: times and agreement."""
+    import torch
+
+    from repro_torch.kernels.ref import rg_lru_ref
+    from repro_torch.models.recurrent import linear_scan
+    gen = torch.Generator(device=torch_device).manual_seed(7)
+    a, x = scan_inputs(B, S, W, torch.float32, gen, torch_device)
+    err = check_allclose(linear_scan(a, x)[1], rg_lru_ref(a, x), 1e-4, 1e-5,
+                         "log-step scan vs sequential")
+    return {"shape": [B, S, W], "max_abs_err": err,
+            "log_step_ms": time_ms(lambda: linear_scan(a, x), 5, 3),
+            "sequential_ms": time_ms(lambda: rg_lru_ref(a, x), 3, 1)}
+
+
+def serve_probe_check(cfg, torch_device: str) -> dict:
+    """Each kernel of the engine's probe, on the probe's own inputs and the
+    registry's config, against its plain version: the shapes the serve
+    path gave the kernels. Each entry names the variant (or the scan's load
+    route) that `plan` gives those inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rg_lru as lru
+    from repro_torch.kernels.profile import (KERNELS, _probe_args,
+                                             _run_kernel, model_workloads)
+    wls = model_workloads(cfg)
+    rng = np.random.RandomState(0)
+    f32 = torch.float32
+    out = {}
+    for kernel in KERNELS:
+        args = _probe_args(kernel, wls[kernel], rng, torch.device(
+            torch_device))
+        knobs = ops.get_registry().get("tpu_v5e", wls[kernel]).as_dict()
+        got = _run_kernel(kernel, args, knobs)
+        if kernel == "matmul":
+            kw = dict(block_m=knobs["block_m"], block_n=knobs["block_n"],
+                      block_k=knobs["block_k"],
+                      k_inner=bool(knobs["k_inner"]),
+                      out_bf16=bool(knobs["out_bf16"]))
+            err = check_close(got, mm.matmul_plain(*args, **kw),
+                              kw["out_bf16"], "serve probe matmul")
+            ran = mm.plan(*wls[kernel].dims, f32, **kw).variant
+        elif kernel == "attention":
+            kw = dict(block_q=knobs["block_q"], block_kv=knobs["block_kv"])
+            want = fa.flash_attention_plain(*args, causal=True, **kw)
+            tol = ATTN_TOL["float32"]
+            err = check_allclose(got, want, tol, tol, "serve probe attention")
+            ran = fa.plan(*args[0].shape, f32, kw["block_q"],
+                          kw["block_kv"], True, 0).variant
+        else:
+            kw = dict(chunk=knobs["chunk"], block_w=knobs["block_w"])
+            want = lru.rg_lru_plain(*args, **kw)
+            err = check_allclose(got, want, 1e-4, 1e-5, "serve probe scan")
+            ran = lru.plan(*args[0].shape, f32, **kw).route
+        out[kernel] = {"dims": list(wls[kernel].dims), "knobs": knobs,
+                       "ran": ran, "max_abs_err": err}
+    return out
+
+
+def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
+                     prompt: int = 512, new: int = 32, slots: int = 4):
+    """The serving path at `cfg`'s width: `build_model` and `init` from
+    seed 0 on the card, then `serve.Engine(profile_kernels=True)` on
+    `requests` greedy requests of `prompt` random tokens and `new` new
+    tokens each, in waves of `slots`; the launch counts are set to 0 just
+    before the engine is made and read just after `generate`. Returns
+    (summary, model, params)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve import Engine, Request
+    mm, fa, lru = modules
+    on_card = torch_device != "cpu"
+    model = build_model(cfg)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, torch_device=torch_device)
+    init_peak = 0.0
+    if on_card:
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = tree_numel_bytes(params)
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=prompt).astype(
+        np.int32), max_new_tokens=new) for _ in range(requests)]
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.push_registry(reg)
+    try:
+        reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+        engine = Engine(model, params, max_len=prompt + new + 8,
+                        batch_slots=slots, profile_kernels=True,
+                        device="tpu_v5e")
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"matmul": mm.matmul.launches,
+                    "flash_attention": fa.flash_attention.launches,
+                    "rg_lru": lru.rg_lru.launches}
+        by_variant = {"matmul": dict(mm.matmul.launches_by_variant),
+                      "flash_attention": dict(
+                          fa.flash_attention.launches_by_variant)}
+    finally:
+        obs_metrics.pop_registry(reg)
+    snap = reg.snapshot()
+    hists = snap["histograms"]
+    pre = reg.histogram("serve.engine.prefill_seconds")
+    step = reg.histogram("serve.engine.step_seconds")
+    kernel_seconds = {
+        k: {c: hists[f"kernel.seconds{{config={c},device=tpu_v5e,"
+                     f"kernel={k}}}"]["count"] for c in ("tuned", "default")}
+        for k in ("matmul", "attention", "scan")}
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    embed = params["embed"].numel()
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+        "activation_dtype": cfg.activation_dtype, "params": n_params,
+        "param_bytes": param_bytes,
+        "cast_param_bytes": tree_numel_bytes(engine.params)[1],
+        "init_seconds": init_s, "requests": len(reqs),
+        "prompt_tokens": prompt, "new_tokens": new, "batch_slots": slots,
+        "tokens": tokens,
+        "tokens_per_request": sorted({len(r.out_tokens) for r in reqs}),
+        "generate_seconds": wall, "tokens_per_s": tokens / wall,
+        "prefills": len(pre), "prefill_s_p50": pre.percentile(50),
+        "prefill_s": pre.state()["window"],
+        "steps": len(step), "step_s_p50": step.percentile(50),
+        "step_s_p90": step.percentile(90),
+        "decode_tokens_per_s": slots / step.percentile(50),
+        "tokens_counter": snap["counters"]["serve.engine.tokens"],
+        "kernel_seconds_counts": kernel_seconds,
+        "launches": launches, "launches_by_variant": by_variant,
+        **serve_bounds(cfg, n_params, embed, slots, prompt,
+                       prompt + new + 8)}
+    if on_card:  # init's peak (group trees stacked), then serving's
+        summary["init_max_memory_allocated_gb"] = init_peak
+        summary["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    summary["prefill_bound_share"] = (summary["prefill_bound_ms"] / 1e3
+                                      / summary["prefill_s_p50"])
+    summary["step_bound_share"] = (summary["step_bound_ms"] / 1e3
+                                   / summary["step_s_p50"])
+    summary["decode_split"] = decode_split(model, engine.params,
+                                           torch_device, slots, prompt)
+    del engine
+    return summary, model, params
+
+
+def decode_split(model, params, torch_device: str, batch: int = 4,
+                 prompt: int = 512, steps: int = 10) -> dict:
+    """Where a decode step's time goes, on the engine's own (cast) params
+    after a prefill of `batch` x `prompt` random tokens: the host's time to
+    enqueue one `decode_step` (no synchronisation) beside the step's wall
+    time to a `torch.cuda.synchronize()`, and, from a `torch.profiler`
+    trace of 3 more steps, the device's kernel time and kernel count per
+    step and the kernels that take most of it. Enqueue close to wall, and
+    kernel time far below it, mean the host paces the step."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch_device != "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    rng = np.random.RandomState(2)
+    toks = torch.as_tensor(rng.randint(0, model.cfg.vocab_size, size=(
+        batch, prompt)).astype(np.int32), device=torch_device)
+    with torch.inference_mode():
+        state, _ = model.prefill(params, {"tokens": toks},
+                                 max_len=prompt + steps + 8)
+        nxt = toks[:, -1]
+        state, _ = model.decode_step(params, state, nxt)  # warm
+        sync()
+        enqueue, wall = [], []
+        for _ in range(steps - 4):
+            t0 = time.perf_counter()
+            state, _ = model.decode_step(params, state, nxt)
+            t1 = time.perf_counter()
+            sync()
+            enqueue.append(t1 - t0)
+            wall.append(time.perf_counter() - t0)
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        with profile(activities=acts) as prof:
+            for _ in range(3):
+                state, _ = model.decode_step(params, state, nxt)
+            sync()
+    # the kernels' own events: a CPU op's self device time repeats its
+    # kernels' time
+    avgs = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kernel_us = sum(e.self_device_time_total for e in avgs)
+    kernels = sum(e.count for e in avgs)
+    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]
+    wall_s = statistics.median(wall)
+    return {"steps_timed": len(wall), "enqueue_s": statistics.median(enqueue),
+            "wall_s": wall_s,
+            "enqueue_share": statistics.median(enqueue) / wall_s,
+            "profiled_steps": 3,
+            "device_kernel_ms_per_step": kernel_us / 3 / 1e3,
+            "device_busy_share": kernel_us / 3 / 1e6 / wall_s,
+            "kernels_per_step": kernels / 3,
+            "top_kernels": [{"name": e.key[:80], "per_step": e.count / 3,
+                             "ms_per_step": e.self_device_time_total / 3e3}
+                            for e in top]}
+
+
+def serve_consistency(cfg, params, torch_device: str, prompts, steps: int = 8
+                      ) -> dict:
+    """Decode against forward at float32 activations (TF32 off), batch 1:
+    for each prompt length S, prefill S random tokens and decode `steps`
+    more; the prefill's logits and each decode step's must equal
+    `forward`'s at that position within |err| <= 1e-4 * max|fwd| + 1e-4 *
+    |fwd|, the CPU parity tests' float32 tolerance (the paths differ only
+    in summation order: blocked vs single-row attention, log-step vs
+    step-by-step scan, GEMMs of other shapes). S = local_window fills the
+    ring exactly, so decode wraps it: each new token overwrites the one
+    that just left the window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, cache_length
+    model = build_model(cfg.replace(activation_dtype="float32"))
+    rng = np.random.RandomState(1)
+    cases = []
+    with torch.inference_mode():
+        for S in prompts:
+            toks = torch.as_tensor(rng.randint(
+                0, cfg.vocab_size, size=(1, S + steps)).astype(np.int32),
+                device=torch_device)
+            fwd, _ = model.forward(params, {"tokens": toks})
+            state, lg = model.prefill(params, {"tokens": toks[:, :S]},
+                                      max_len=S + steps)
+            sc = cache_length(cfg, S + steps)
+            errs = [check_allclose(lg, fwd[:, S - 1], 1e-4,
+                                   1e-4 * float(fwd[:, S - 1].abs().max()),
+                                   f"prefill S={S}")]
+            for s in range(S, S + steps):
+                state, lg = model.decode_step(params, state, toks[:, s])
+                ref = fwd[:, s]
+                errs.append(check_allclose(
+                    lg, ref, 1e-4, 1e-4 * float(ref.abs().max()),
+                    f"decode S={S} at {s}"))
+            cases.append({"prompt": S, "steps": steps, "cache_slots": sc,
+                          "wraps": S + steps > sc,
+                          "max_abs_err": max(errs),
+                          "max_abs_logit": float(fwd[0, S - 1:].abs().max())})
+            del fwd, state
+    return {"tolerance": "|err| <= 1e-4 * max|fwd| + 1e-4 * |fwd| "
+                         "(the CPU parity tests' float32 tolerance)",
+            "cases": cases,
+            "not_checked": "S > Sc with S % Sc != 0: decode writes position "
+                           "S at slot S % Sc, over a token still in the "
+                           "window, so decode departs from forward; a "
+                           "reference property the port reproduces "
+                           "(ROADMAP Queue 3, tests/test_torch_models.py)"}
+
+
 def cost_model_parity(torch_device: str, moses_cfg) -> float:
     """The full-width cost model scores the same on the card as on the CPU
     (TF32 off): returns the max relative difference, raises above 1e-4."""
@@ -704,6 +1035,7 @@ def main() -> int:
 def run_phases(torch, tmp: str) -> int:
     from repro_torch.autotune.space import config_valid
     from repro_torch.autotune.tasks import resnet18_tasks
+    from repro_torch.configs import get_config
     from repro_torch.configs.moses import MosesConfig
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -740,7 +1072,9 @@ def run_phases(torch, tmp: str) -> int:
         "cuda", moses_cfg, programs_per_task=24, epochs=10, trials=32,
         registry_path=str(Path(tmp) / "resnet18.json"), tasks=tasks)
     launches = {"matmul": mm.matmul.launches,
-                "by_variant": dict(mm.matmul.launches_by_variant)}
+                "by_variant": dict(mm.matmul.launches_by_variant),
+                "flash_attention": fa.flash_attention.launches,
+                "rg_lru": lru.rg_lru.launches}
     emit("main_path", launches=launches["matmul"],
          launches_by_variant=launches["by_variant"], **summary)
     assert launches["matmul"] >= len(tasks) == 12, \
@@ -845,6 +1179,22 @@ def run_phases(torch, tmp: str) -> int:
                        else "rg_lru"] = line
     torch.cuda.synchronize()
 
+    # path 3: the serving path on the full RecurrentGemma-2B config
+    serve_cfg = get_config("recurrentgemma-2b")
+    serve, _, params = drive_serve_path("cuda", serve_cfg, (mm, fa, lru))
+    serve["probe_check"] = serve_probe_check(serve_cfg, "cuda")
+    serve["scan_choice"] = scan_choice("cuda", 4, 512, serve_cfg.lru_width)
+    emit("serve_path", **serve)
+    sv = serve["launches"]
+    assert min(sv.values()) >= 1, sv  # each kernel, in the engine's probe
+    assert serve["requests"] == 8 and serve["tokens_per_request"] == [32], \
+        serve
+    torch.cuda.empty_cache()
+    emit("serve_consistency", arch=serve_cfg.name, **serve_consistency(
+        serve_cfg, params, "cuda", (512, serve_cfg.local_window)))
+    del params
+    torch.cuda.empty_cache()
+
     # one entry per ported kernel. matmul's times are sums over both paths'
     # GEMMs (one launch each); the other two are their one task's
     entries = [{
@@ -855,12 +1205,14 @@ def run_phases(torch, tmp: str) -> int:
         "replaces": f"{TPU_KERNEL}:99",
         "tpu_kernel": f"{TPU_KERNEL}:matmul (pallas_call at :99, k_inner=1,"
                       f" and :115, k_inner=0)",
-        "launches": launches["matmul"] + lm_launches["matmul"],
+        "launches": launches["matmul"] + lm_launches["matmul"] + sv["matmul"],
         "launches_by_variant": {
-            v: launches["by_variant"][v] + lm_by_variant[v]
+            v: (launches["by_variant"][v] + lm_by_variant[v]
+                + serve["launches_by_variant"]["matmul"][v])
             for v in ("wgmma", "simt")},
         "launches_by_path": {"resnet18": launches["matmul"],
-                             "recurrentgemma-2b": lm_launches["matmul"]},
+                             "recurrentgemma-2b": lm_launches["matmul"],
+                             "serve": sv["matmul"]},
         "checked": True, "max_abs_err": worst,
         "ms": totals["ms"], "device_ms": totals["device_ms"],
         "plain_ms": totals["plain_ms"],
@@ -874,13 +1226,20 @@ def run_phases(torch, tmp: str) -> int:
                 "replaces": "src/repro/kernels/flash_attention.py:100",
                 "sources": {"wgmma": f"{csrc}/flash_attention_wgmma.cu",
                             "simt": f"{csrc}/flash_attention.cu"},
-                "launches_by_variant": fa_by_variant}),
+                "launches_by_variant": {
+                    v: fa_by_variant[v]
+                    + serve["launches_by_variant"]["flash_attention"][v]
+                    for v in ("wgmma", "simt")}}),
             ("rg_lru", "rg_lru.cu",
              {"replaces": "src/repro/kernels/rg_lru.py:57"})):
         line = per_kernel[name]
         entries.append({
             "name": name, "route": "cuda", "source": f"{csrc}/{src}",
-            **extra, "launches": lm_launches[name],
+            **extra,
+            "launches": launches[name] + lm_launches[name] + sv[name],
+            "launches_by_path": {"resnet18": launches[name],
+                                 "recurrentgemma-2b": lm_launches[name],
+                                 "serve": sv[name]},
             "checked": True, "max_abs_err": line["max_abs_err"],
             "ms": line["ms"], "device_ms": line["device_ms"],
             "plain_ms": line["plain_ms"],

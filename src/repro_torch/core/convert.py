@@ -68,3 +68,25 @@ def cost_model_params_from_npz(path: str, torch_device: TorchDevice = "cuda"
     params, _ = load_params(path, torch_device)
     _check_mlp_layers(params, path)
     return params
+
+
+def _leaf_tensor(x, dev: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' numpy bfloat16
+        return torch.tensor(arr.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(arr, device=dev)
+
+
+def model_params(tree: Mapping, torch_device: TorchDevice = "cuda") -> dict:
+    """The reference LM's param pytree (nested dicts of arrays, stacked
+    `groups` included) as the port's tree of tensors on `torch_device`,
+    with identical key paths and each leaf's dtype."""
+    dev = resolve_torch_device(torch_device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return _leaf_tensor(node, dev)
+
+    return walk(tree)

@@ -30,6 +30,9 @@ def _port_modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.matmul" in mods and len(mods) > 15
+    assert {"repro_torch.obs", "repro_torch.models", "repro_torch.train",
+            "repro_torch.serve", "repro_torch.launch.serve",
+            "repro_torch.kernels.profile"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
