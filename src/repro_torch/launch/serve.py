@@ -5,11 +5,14 @@
         --arch recurrentgemma-2b --smoke --torch-device cpu \
         --requests 8 --prompt-len 32 --max-new 16
 
-The model is initialised from --seed on --torch-device (default cuda, which
-raises without a card) and serves on it. --production-mesh (a multi-device
-mesh) raises NotImplementedError: the distribution layer is not ported yet
-(ROADMAP Queue 1 item 12). Architectures whose blocks are not ported raise
-too (item 11).
+Every architecture of `ARCH_IDS` serves. The model is initialised from
+--seed on --torch-device (default cuda, which raises without a card) and
+serves on it. Whisper's encoder frames and the VLM's frontend embeddings
+(stub frontends) are drawn from the same `RandomState(seed)` before the
+prompts, as the reference draws them, so both packages get the same
+inputs. --production-mesh (a multi-device mesh) raises
+NotImplementedError: the distribution layer is not ported yet (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -21,6 +24,21 @@ import numpy as np
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, Request
+
+
+def extra_batch(cfg, batch_slots: int, rng: np.random.RandomState) -> dict:
+    """The stub frontends' inputs, one row per slot, float32 from `rng`:
+    whisper's encoder frames or the VLM's frontend embeddings ({} for the
+    other configs)."""
+    width = cfg.frontend_dim or cfg.d_model
+    if cfg.is_encoder_decoder:
+        return {"encoder_embeddings": rng.randn(
+            batch_slots, cfg.encoder_seq_len, width).astype(np.float32) * 0.1}
+    if cfg.cross_attn_every > 0:
+        return {"frontend_embeddings": rng.randn(
+            batch_slots, cfg.num_frontend_tokens, width).astype(
+                np.float32) * 0.1}
+    return {}
 
 
 def main(argv=None):
@@ -50,7 +68,9 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
     engine = Engine(model, params,
                     max_len=args.prompt_len + args.max_new + 8,
-                    batch_slots=args.batch_slots, seed=args.seed)
+                    batch_slots=args.batch_slots,
+                    extra_batch=extra_batch(cfg, args.batch_slots, rng),
+                    seed=args.seed)
     reqs = [Request(prompt=rng.randint(0, cfg.vocab_size,
                                        size=args.prompt_len).astype(np.int32),
                     max_new_tokens=args.max_new,

@@ -7,12 +7,13 @@ reference's order, with its online softmax and its rounding point (P is
 cast to V's dtype against the running max). Products take float32 inputs
 where the reference asks for a float32 result (`preferred_element_type`):
 the product of two bf16 values is exact in float32, so the result is the
-same. Also: GQA grouping, RoPE, and single-step decode attention against a
-KV cache.
+same. Also: GQA grouping, RoPE, single-step decode attention against a
+KV cache, cross attention (its K/V from an encoder or a frontend, built
+once at prefill, with the Llama-3.2-Vision tanh gate) and DeepSeek's MLA
+(a compressed latent KV cache, absorbed-form decode).
 
-Not ported yet (ROADMAP Queue 1 item 11): MLA and cross attention; the
-partial decode and its LSE combine belong to the distribution layer (item
-12).
+The partial decode and its LSE combine belong to the distribution layer,
+which is not ported (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -199,18 +200,22 @@ def decode_attend(
 # ---------------------------------------------------------------------------
 
 
-def init_attention(b: ParamBuilder, cfg):
+def init_attention(b: ParamBuilder, cfg, cross: bool = False):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, G = cfg.num_heads, cfg.num_kv_heads
     b.param("wq", (d, H, hd), ("embed", "heads", "head_dim"))
-    b.param("wk", (d, G, hd), ("embed", "kv_heads", "head_dim"))
-    b.param("wv", (d, G, hd), ("embed", "kv_heads", "head_dim"))
+    kv_in_dim = (cfg.frontend_dim or d) if cross else d
+    b.param("wk", (kv_in_dim, G, hd), ("embed", "kv_heads", "head_dim"))
+    b.param("wv", (kv_in_dim, G, hd), ("embed", "kv_heads", "head_dim"))
     b.param("wo", (H, hd, d), ("heads", "head_dim", "embed"),
             scale=1.0 / math.sqrt(H * hd))
     if getattr(cfg, "use_bias", False):
         b.param("bq", (H, hd), ("heads", "head_dim"), init="zeros")
         b.param("bv", (G, hd), ("kv_heads", "head_dim"), init="zeros")
         b.param("bo", (d,), ("embed",), init="zeros")
+    if cross:
+        # Llama-3.2-Vision style tanh gates on cross-attn output
+        b.param("gate_attn", (1,), (None,), init="zeros", dtype=torch.float32)
     if cfg.qk_norm:
         b.param("q_norm_scale", (hd,), ("head_dim",), init="ones",
                 dtype=torch.float32)
@@ -218,10 +223,11 @@ def init_attention(b: ParamBuilder, cfg):
                 dtype=torch.float32)
 
 
-def _qkv(p, cfg, x):
+def _qkv(p, cfg, x, kv_src=None):
+    kv_src = x if kv_src is None else kv_src
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dgk->bsgk", kv_src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dgk->bsgk", kv_src, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
@@ -258,6 +264,11 @@ def _config_window(cfg) -> int:
         cfg.local_window if cfg.attention_kind == "local" else 0)
 
 
+def _gate(p, y):
+    """y * tanh(gate_attn), the tanh in float32 and cast to y's dtype."""
+    return y * torch.tanh(p["gate_attn"]).to(y.dtype)
+
+
 def attention_forward(
     p,
     cfg,
@@ -265,15 +276,20 @@ def attention_forward(
     positions: torch.Tensor,  # [S] absolute positions
     kind: Optional[str] = None,
     window: Optional[int] = None,
+    kv_src: Optional[torch.Tensor] = None,  # cross-attention source
 ) -> torch.Tensor:
-    q, k, v = _qkv(p, cfg, x)
-    if cfg.use_rope:
+    cross = kv_src is not None
+    q, k, v = _qkv(p, cfg, x, kv_src)
+    if cfg.use_rope and not cross:
         # q,k are [B,S,H,D]: rope over S with head axis trailing
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     kind, window = _mask_of(cfg, kind, window)
     o = blocked_attention(q, k, v, kind=kind, window=window)
-    return _out_proj(p, o)
+    y = _out_proj(p, o)
+    if cross and "gate_attn" in p:
+        y = _gate(p, y)
+    return y
 
 
 def attention_prefill(p, cfg, x, positions, cache_len: int,
@@ -324,3 +340,144 @@ def attention_decode(p, cfg, x, cache, cur_pos,
                       window=window)
     y = _out_proj(p, o[:, None])
     return y, {"k": k_cache, "v": v_cache, "pos": pos_cache}
+
+
+def cross_attention_decode(p, cfg, x, cache):
+    """Decode-time cross attention against the static cross K/V built at
+    prefill: every one of the Sc source rows is visible."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    B = x.shape[0]
+    Sc = cache["k"].shape[1]
+    pos = torch.arange(Sc, dtype=torch.int32, device=x.device).expand(B, Sc)
+    o = decode_attend(q[:, 0], cache["k"], cache["v"], pos,
+                      torch.full((B,), Sc, dtype=torch.int32,
+                                 device=x.device))
+    y = _out_proj(p, o[:, None])
+    if "gate_attn" in p:
+        y = _gate(p, y)
+    return y
+
+
+def cross_attention_build_cache(p, cfg, kv_src):
+    k = torch.einsum("bsd,dgk->bsgk", kv_src, p["wk"].to(kv_src.dtype))
+    v = torch.einsum("bsd,dgk->bsgk", kv_src, p["wv"].to(kv_src.dtype))
+    if "bv" in p:
+        v = v + p["bv"].to(kv_src.dtype)
+    return {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(b: ParamBuilder, cfg):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    b.param("wq_a", (d, m.q_lora_rank), ("embed", None))
+    b.param("q_norm", (m.q_lora_rank,), (None,), init="ones",
+            dtype=torch.float32)
+    b.param("wq_b", (m.q_lora_rank, H, dn + dr), (None, "heads", "head_dim"))
+    b.param("wkv_a", (d, m.kv_lora_rank + dr), ("embed", None))
+    b.param("kv_norm", (m.kv_lora_rank,), (None,), init="ones",
+            dtype=torch.float32)
+    b.param("wk_b", (m.kv_lora_rank, H, dn), (None, "heads", "head_dim"))
+    b.param("wv_b", (m.kv_lora_rank, H, dv), (None, "heads", "head_dim"))
+    b.param("wo", (H, dv, d), ("heads", "head_dim", "embed"),
+            scale=1.0 / math.sqrt(H * dv))
+
+
+def mla_latents(p, cfg, x, positions):
+    """q (nope and rope parts), the compressed kv latent and the rope key
+    shared by every head ([B, S, 1, dr])."""
+    m = cfg.mla
+    dn = m.qk_nope_head_dim
+    q_lat = _rms_head(torch.matmul(x, p["wq_a"].to(x.dtype)), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = torch.matmul(x, p["wkv_a"].to(x.dtype))
+    c_kv = _rms_head(kv[..., : m.kv_lora_rank], p["kv_norm"])
+    k_rope = kv[..., m.kv_lora_rank:][:, :, None, :]
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(m) -> float:
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_forward(p, cfg, x, positions):
+    """Train/prefill path: per-head K, V rebuilt from the latent (the
+    non-absorbed form, cheaper for long sequences), then blocked
+    attention."""
+    return _mla_attend(p, cfg, x, mla_latents(p, cfg, x, positions))
+
+
+def _mla_attend(p, cfg, x, latents):
+    m = cfg.mla
+    q_nope, q_rope, c_kv, k_rope = latents
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(x.dtype))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(x.dtype))
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat(
+        [k_nope, k_rope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)],
+        dim=-1)
+    o = blocked_attention(q_full, k_full, v, kind="causal",
+                          scale=_mla_scale(m))
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+
+
+def mla_prefill(p, cfg, x, positions, cache_len: int):
+    """Forward + the latent cache {c_kv, k_rope, pos} of the last cache_len
+    tokens (kv_lora_rank + qk_rope_head_dim values a token)."""
+    latents = mla_latents(p, cfg, x, positions)
+    y = _mla_attend(p, cfg, x, latents)
+    c_kv, k_rope = latents[2:]
+    B, S = x.shape[:2]
+    take = min(cache_len, S)
+    pad = cache_len - take
+    c = F.pad(c_kv[:, S - take:], (0, 0, 0, pad))
+    kr = F.pad(k_rope[:, S - take:, 0], (0, 0, 0, pad))
+    pos_c = F.pad(positions[S - take:], (0, pad), value=-1)
+    pos_c = pos_c.to(torch.int32).expand(B, cache_len).contiguous()
+    return y, {"c_kv": c, "k_rope": kr, "pos": pos_c}
+
+
+def mla_decode(p, cfg, x, cache, cur_pos):
+    """Absorbed-form decode: q_nope folded through wk_b scores against the
+    latent cache directly; the latent context goes through wv_b. Writes the
+    new token at slot cur_pos % Sc into copies of the cache tensors."""
+    m = cfg.mla
+    B = x.shape[0]
+    Sc = cache["c_kv"].shape[1]
+    q_nope, q_rope, c_kv_new, k_rope_new = mla_latents(
+        p, cfg, x, cur_pos[:, None])
+    slot = (cur_pos % Sc).long()
+    bidx = torch.arange(B, device=x.device)
+    c_cache = cache["c_kv"].clone()
+    r_cache = cache["k_rope"].clone()
+    pos_cache = cache["pos"].clone()
+    c_cache[bidx, slot] = c_kv_new[:, 0].to(c_cache.dtype)
+    r_cache[bidx, slot] = k_rope_new[:, 0, 0].to(r_cache.dtype)
+    pos_cache[bidx, slot] = cur_pos.to(torch.int32)
+
+    # absorb: q_eff[b,h,r] = q_nope . wk_b -> score against the latent
+    q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"].to(x.dtype))
+    logits = (
+        torch.einsum("bhr,bsr->bhs", q_abs.float(), c_cache.float())
+        + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), r_cache.float())
+    ) * _mla_scale(m)
+    valid = (pos_cache >= 0) & (pos_cache <= cur_pos[:, None])
+    logits = torch.where(valid[:, None, :], logits, NEG_INF)
+    mmax = logits.amax(dim=-1, keepdim=True)
+    pr = torch.exp(logits - mmax)
+    pr = pr / pr.sum(dim=-1, keepdim=True)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).float(),
+                           c_cache.float()).to(x.dtype)
+    o = torch.einsum("bhr,rhk->bhk", ctx_lat, p["wv_b"].to(x.dtype))
+    y = torch.einsum("bhk,hkd->bd", o, p["wo"].to(o.dtype))[:, None]
+    return y, {"c_kv": c_cache, "k_rope": r_cache, "pos": pos_cache}

@@ -2,7 +2,9 @@
 
 Every parameter is created through ParamBuilder, which records a parallel
 tree of logical axis names beside the params, with the reference's key
-paths and fan-in scaling. Params are nested dicts of tensors; a
+paths and fan-in scaling, and a second parallel tree that marks each leaf
+the model reads in float32 arithmetic (`Model.cast_params` leaves those as
+given). Params are nested dicts of tensors; a
 `torch.Generator` on an explicit device takes the place of `jax.random`
 keys, so the values differ from the reference's for the same seed (the
 parity tests carry the reference's params over with
@@ -59,7 +61,13 @@ class ParamBuilder:
 
     Draws come from `generator`, on the generator's device, in the order
     the params are built. abstract=True records meta-device tensors instead
-    of sampling (shapes and dtypes without allocating anything)."""
+    of sampling (shapes and dtypes without allocating anything).
+
+    `float32_read` is a third parallel tree of booleans: True for a leaf
+    declared with `dtype=torch.float32` (norm scales, gates, `lambda_raw`)
+    or with `reads_float32=True` (a weight of the param dtype that the
+    model upcasts before use: the MoE router, the sLSTM's recurrent
+    matrices)."""
 
     def __init__(self, generator: Optional[torch.Generator],
                  param_dtype: str = "float32", abstract: bool = False):
@@ -70,6 +78,7 @@ class ParamBuilder:
         self.dtype = dtype_of(param_dtype)
         self.params: dict = {}
         self.axes: dict = {}
+        self.float32_read: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -81,6 +90,7 @@ class ParamBuilder:
         sub.dtype = self.dtype
         self.params[name] = sub.params
         self.axes[name] = sub.axes
+        self.float32_read[name] = sub.float32_read
         return sub
 
     def param(
@@ -91,8 +101,10 @@ class ParamBuilder:
         init: str = "normal",
         scale: Optional[float] = None,
         dtype: Optional[torch.dtype] = None,
+        reads_float32: bool = False,
     ) -> torch.Tensor:
         assert len(shape) == len(axes), (name, shape, axes)
+        self.float32_read[name] = reads_float32 or dtype == torch.float32
         dtype = dtype or self.dtype
         shape = tuple(shape)
         if self.abstract:
@@ -168,14 +180,19 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(name)
 
 
-def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
-                         device=None) -> torch.Tensor:
-    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+def sinusoid_at(positions: torch.Tensor, dim: int,
+                dtype=torch.float32) -> torch.Tensor:
+    """Sinusoidal embeddings at integer positions [...] -> [..., dim]."""
     half = dim // 2
     freq = torch.exp(-math.log(10000.0) * torch.arange(
-        half, dtype=torch.float32, device=device) / half)
-    ang = pos * freq[None, :]
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    return sinusoid_at(torch.arange(seq_len, device=device), dim, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ tensors:
     cast_params(params) -> params with each weight the model only reads at
         the activation dtype cast to it once
 
-Batch keys: tokens int32 [B,S]. The loss (training), the encoder, the
-frontends and absolute positions wait (ROADMAP Queue 1 item 11);
-build_model raises for a config that needs them.
+Batch keys: tokens int32 [B,S]; the encoder-decoder (whisper) adds
+encoder_embeddings [B, enc_len, frontend_dim] (the stub frontend's frames),
+the VLM frontend_embeddings [B, N_img, frontend_dim]. The loss (training)
+waits (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -26,13 +27,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import TorchDevice, resolve_torch_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ParamBuilder, apply_norm, dtype_of,
-                                       init_norm)
+                                       init_norm, sinusoid_at,
+                                       sinusoidal_positions)
 
 PyTree = Any
-
-# leaves the model reads in float32 arithmetic whatever the activation
-# dtype; norm subtrees ("ln_*", "final_norm") are kept whole
-FLOAT32_LEAVES = ("lambda_raw", "q_norm_scale", "k_norm_scale")
 
 
 def cache_length(cfg: ModelConfig, context_len: int) -> int:
@@ -44,17 +42,13 @@ def cache_length(cfg: ModelConfig, context_len: int) -> int:
     return context_len
 
 
-def _is_norm(name: str) -> bool:
-    return name.startswith("ln_") or name in ("final_norm", "encoder_norm")
-
-
-def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
+def _cast_tree(tree: dict, float32_read: dict, dtype: torch.dtype) -> dict:
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = v if _is_norm(k) else _cast_tree(v, dtype)
+            out[k] = _cast_tree(v, float32_read[k], dtype)
         else:
-            out[k] = v if k in FLOAT32_LEAVES else v.to(dtype)
+            out[k] = v if float32_read[k] else v.to(dtype)
     return out
 
 
@@ -72,7 +66,12 @@ class Model:
 
     def abstract_params_and_axes(self):
         """(meta-device tensor tree, axes tree) without allocating anything."""
-        return self._build(None, abstract=True)
+        return self._build(None, abstract=True)[:2]
+
+    def float32_read(self) -> PyTree:
+        """A tree of booleans beside the params: True for each leaf the
+        model reads in float32 arithmetic (`ParamBuilder.float32_read`)."""
+        return self._build(None, abstract=True)[2]
 
     def _build(self, generator, abstract: bool):
         cfg = self.cfg
@@ -84,21 +83,31 @@ class Model:
                     scale=1.0 / math.sqrt(cfg.d_model))
         init_norm(b, "final_norm", cfg.d_model, cfg.norm)
         tfm.init_stack(b, cfg)
-        return b.params, b.axes
+        if cfg.is_encoder_decoder:
+            enc = b.child("encoder")
+            tfm.init_stack(enc, cfg, kinds_override=self._encoder_kinds())
+            init_norm(b, "encoder_norm", cfg.d_model, cfg.norm)
+        return b.params, b.axes, b.float32_read
+
+    def _encoder_kinds(self):
+        return ["encoder_attention"] * self.cfg.encoder_layers
 
     def cast_params(self, params: PyTree) -> PyTree:
         """The tree the serving engine runs on: every weight the model reads
         only after a cast to the activation dtype (`w.to(x.dtype)` in the
         projections, the embedding gather and the tied logits) cast once;
-        norm params and FLOAT32_LEAVES are the given tensors. The results
-        are the same, bit for bit, as with `params`: only the per-call cast
-        goes."""
-        return _cast_tree(params, dtype_of(self.cfg.activation_dtype))
+        the leaves it reads in float32 (`float32_read`: norm params, gates,
+        the MoE router, the sLSTM's recurrent matrices, ...) are the given
+        tensors. The results are the same, bit for bit, as with `params`:
+        only the per-call cast goes."""
+        return _cast_tree(params, self.float32_read(),
+                          dtype_of(self.cfg.activation_dtype))
 
     # ------------------------------------------------------------- internals
-    def _embed(self, params, tokens):
-        """tokens [B,S] -> [B,S,d] in the activation dtype (positions enter
-        through RoPE; build_model rejects configs without it)."""
+    def _embed(self, params, tokens, positions=None):
+        """tokens [B,S] -> [B,S,d] in the activation dtype; positions [S]
+        or [B,S] (default 0..S-1) for the sinusoidal absolute positions of
+        a config without RoPE (whisper; xLSTM uses none)."""
         cfg = self.cfg
         x = params["embed"][tokens].to(dtype_of(cfg.activation_dtype))
         if cfg.family == "hybrid":  # gemma-family embedding scaling
@@ -106,6 +115,11 @@ class Model:
             # reference does (50.596 -> 50.5 in bf16)
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                                  device=x.device)
+        if not cfg.use_rope and cfg.family != "ssm":
+            if positions is None:
+                positions = torch.arange(tokens.shape[1], device=x.device)
+            # [S, d] or, at decode, [B, 1, d]: broadcast over the batch
+            x = x + sinusoid_at(positions, cfg.d_model, x.dtype)
         return x
 
     def _logits(self, params, x):
@@ -123,20 +137,46 @@ class Model:
             logits = torch.cat([logits[..., : cfg.vocab_size], neg], dim=-1)
         return logits
 
+    def _encode(self, params, encoder_embeddings):
+        cfg = self.cfg
+        x = encoder_embeddings.to(dtype_of(cfg.activation_dtype))
+        S = x.shape[1]
+        x = x + sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)[None]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        x, _ = tfm.stack_forward(params["encoder"], cfg, x, positions, {},
+                                 kinds_override=self._encoder_kinds())
+        return apply_norm(params["encoder_norm"], x, cfg.norm)
+
+    def _extras(self, params, batch) -> dict:
+        """The blocks' extras: the batch's own, plus the cross-attention
+        source (the encoder's output, or the frontend embeddings cast to
+        the activation dtype)."""
+        cfg = self.cfg
+        extras = dict(batch.get("extras", {}))
+        if cfg.is_encoder_decoder:
+            extras["kv_src"] = self._encode(params,
+                                            batch["encoder_embeddings"])
+        elif cfg.cross_attn_every > 0:
+            extras["kv_src"] = batch["frontend_embeddings"].to(
+                dtype_of(cfg.activation_dtype))
+        return extras
+
     # --------------------------------------------------------------- forward
     def forward(self, params, batch):
-        """(logits [B, S, V], aux): aux is 0, as for every ported block."""
+        """(logits [B, S, V], aux): aux is the MoE blocks' summed load-
+        balancing loss (0 without MoE)."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device)
-        x = tfm.stack_forward(params, self.cfg, x, positions)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        extras = self._extras(params, batch)
+        x, aux = tfm.stack_forward(params, self.cfg, x, positions, extras)
         return self._logits(params, x), aux
 
     # --------------------------------------------------------------- serving
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """Processes batch['tokens'] [B,S]; returns (state, last_logits).
+        """Processes batch['tokens'] [B,S] (and the batch's encoder or
+        frontend embeddings); returns (state, last_logits).
 
         max_len: total planned sequence length (context + decode steps); the
         KV cache is sized for it (default S + 64 headroom).
@@ -146,8 +186,9 @@ class Model:
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        extras = self._extras(params, batch)
         clen = cache_length(cfg, max_len if max_len is not None else S + 64)
-        x, caches = tfm.stack_prefill(params, cfg, x, positions, clen)
+        x, caches = tfm.stack_prefill(params, cfg, x, positions, clen, extras)
         logits = self._logits(params, x[:, -1:])[:, 0]
         state = {"layers": caches,
                  "cur": torch.full((B,), S, dtype=torch.int32,
@@ -155,20 +196,20 @@ class Model:
         return state, logits
 
     def decode_step(self, params, state, tokens):
-        """tokens: [B] int32 -> (new_state, logits [B, V])."""
+        """tokens: [B] int32 -> (new_state, logits [B, V]). The blocks read
+        `state["extras"]` where the state has one; the returned state drops
+        it, as the reference's does."""
         cur = state["cur"]
-        x = self._embed(params, tokens[:, None])
+        x = self._embed(params, tokens[:, None], positions=cur[:, None])
+        extras = dict(state.get("extras", {}))
         x, caches = tfm.stack_decode(params, self.cfg, x, state["layers"],
-                                     cur)
+                                     cur, extras)
         logits = self._logits(params, x)[:, 0]
-        new_state = dict(state)
+        new_state = {k: v for k, v in state.items() if k != "extras"}
         new_state["layers"] = caches
         new_state["cur"] = cur + 1
         return new_state, logits
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The Model of `cfg`; raises NotImplementedError where the config needs
-    a part that is not ported (`transformer.check_supported`)."""
-    tfm.check_supported(cfg)
     return Model(cfg=cfg)

@@ -3,51 +3,38 @@
 
 A stack is factored as (prefix, repeated group, suffix):
   dense:           ([], (attention,), L, [])
+  deepseek-v3:     ([attention]*3, (moe_attention,), 58, [])
+  dbrx:            ([], (moe_attention,), 40, [])
   recurrentgemma:  ([], (recurrent, recurrent, attention), 8, [recurrent]*2)
+  xlstm:           ([], (mlstm, slstm), 12, [])
+  vision-90b:      ([], (attention x4, cross_attention), 20, [])
+  whisper decoder: ([], (encdec_attention,), 4, [])
 
 With scan_layers the repeated group's params are stacked along a leading
 axis (`groups`), as the reference stacks them for `jax.lax.scan`; here a
 Python loop walks the group index, and the per-group caches are stacked
-the same way.
+the same way. `kinds_override` gives a plain list of block kinds in place
+of the config's plan (the whisper encoder).
 
-Ported block kinds: `attention` and `recurrent`. The others, and MLA,
-raise NotImplementedError (ROADMAP Queue 1 item 11).
+Blocks read `extras`, as the reference's do: `kv_src` (the cross-attention
+source), `chunk` (the mLSTM chunk, default `cfg.scan_chunk`) and `moe_impl`
+(default "scatter"). `stack_forward` returns the blocks' summed aux loss.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (ParamBuilder, apply_mlp, apply_norm,
                                        init_mlp, init_norm, stack_params,
                                        tree_map)
 
 PyTree = Any
-
-PORTED_KINDS = ("attention", "recurrent")
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item 11: the rest of the LM zoo)")
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a config that needs an unported part:
-    a block kind other than attention and recurrent, MLA, an encoder, a
-    cross-attention frontend or absolute positions in place of RoPE."""
-    if cfg.is_encoder_decoder:
-        raise unported(f"{cfg.name}: the encoder-decoder stack")
-    if cfg.cross_attn_every > 0:
-        raise unported(f"{cfg.name}: cross attention")
-    if cfg.mla is not None:
-        raise unported(f"{cfg.name}: MLA attention")
-    other = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
-    if other:
-        raise unported(f"{cfg.name}: block kinds {other}")
-    if not cfg.use_rope:
-        raise unported(f"{cfg.name}: absolute (sinusoidal) positions")
 
 
 # ---------------------------------------------------------------------------
@@ -115,65 +102,210 @@ def stack_plan(cfg) -> Tuple[List[str], Tuple[str, ...], int, List[str]]:
 # ---------------------------------------------------------------------------
 
 
-def _check_block(cfg, kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise unported(f"block kind {kind!r}")
-    if kind == "attention" and cfg.mla is not None:
-        raise unported("MLA attention")
-
-
 def init_block(b: ParamBuilder, cfg, kind: str):
-    _check_block(cfg, kind)
-    if kind == "attention":
+    if kind in ("attention", "moe_attention"):
+        init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
+        a = b.child("attn")
+        if cfg.mla is not None:
+            attn.init_mla(a, cfg)
+        else:
+            attn.init_attention(a, cfg)
+        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
+        if kind == "moe_attention":
+            moe_mod.init_moe(b, cfg)
+        else:
+            init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
+    elif kind == "cross_attention":
+        init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
+        attn.init_attention(b.child("attn"), cfg, cross=True)
+        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
+        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
+        b.param("gate_mlp", (1,), (None,), init="zeros", dtype=torch.float32)
+    elif kind == "encdec_attention":
+        init_norm(b, "ln_self", cfg.d_model, cfg.norm)
+        attn.init_attention(b.child("self_attn"), cfg)
+        init_norm(b, "ln_cross", cfg.d_model, cfg.norm)
+        attn.init_attention(b.child("cross_attn"), cfg, cross=True)
+        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
+        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
+    elif kind == "encoder_attention":
         init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
         attn.init_attention(b.child("attn"), cfg)
-    else:
+        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
+        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
+    elif kind == "recurrent":
         init_norm(b, "ln_rec", cfg.d_model, cfg.norm)
         rec_mod.init_recurrent_block(b.child("rec"), cfg)
-    init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
-    init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
-
-
-def _mlp_residual(p, cfg, x):
-    h = apply_norm(p["ln_mlp"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h, cfg.act, cfg.use_glu)
-
-
-def block_forward(p, cfg, kind: str, x, positions):
-    """Returns x after the block."""
-    _check_block(cfg, kind)
-    if kind == "attention":
-        h = apply_norm(p["ln_attn"], x, cfg.norm)
-        x = x + attn.attention_forward(p["attn"], cfg, h, positions)
+        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
+        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
+    elif kind == "mlstm":
+        init_norm(b, "ln", cfg.d_model, cfg.norm)
+        xlstm_mod.init_mlstm_block(b.child("cell"), cfg)
+    elif kind == "slstm":
+        init_norm(b, "ln", cfg.d_model, cfg.norm)
+        xlstm_mod.init_slstm_block(b.child("cell"), cfg)
     else:
+        raise ValueError(kind)
+
+
+def _mlp(p, cfg, x):
+    return apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg.norm), cfg.act,
+                     cfg.use_glu)
+
+
+def _ffn(p, cfg, kind: str, x, extras):
+    """The feed-forward half of an (moe_)attention block: (y, aux)."""
+    h = apply_norm(p["ln_mlp"], x, cfg.norm)
+    if kind == "moe_attention":
+        return moe_mod.moe_forward(p["moe"], cfg, h,
+                                   extras.get("moe_impl", "scatter"))
+    return apply_mlp(p["mlp"], h, cfg.act, cfg.use_glu), None
+
+
+def _gated_mlp(p, cfg, x):
+    """The cross_attention block's MLP residual, tanh-gated (the tanh in
+    float32, cast to x's dtype)."""
+    return x + _mlp(p, cfg, x) * torch.tanh(p["gate_mlp"]).to(x.dtype)
+
+
+def _chunk(cfg, extras) -> int:
+    return extras.get("chunk", cfg.scan_chunk)
+
+
+def block_forward(p, cfg, kind: str, x, positions, extras
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (x, aux_loss); aux is None for a block without one."""
+    aux = None
+    if kind in ("attention", "moe_attention"):
+        h = apply_norm(p["ln_attn"], x, cfg.norm)
+        if cfg.mla is not None:
+            y = attn.mla_forward(p["attn"], cfg, h, positions)
+        else:
+            y = attn.attention_forward(p["attn"], cfg, h, positions)
+        x = x + y
+        y, aux = _ffn(p, cfg, kind, x, extras)
+        x = x + y
+    elif kind == "cross_attention":
+        h = apply_norm(p["ln_attn"], x, cfg.norm)
+        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
+                                       kind="full", kv_src=extras["kv_src"])
+        x = _gated_mlp(p, cfg, x)
+    elif kind == "encdec_attention":
+        h = apply_norm(p["ln_self"], x, cfg.norm)
+        x = x + attn.attention_forward(p["self_attn"], cfg, h, positions,
+                                       kind="causal")
+        h = apply_norm(p["ln_cross"], x, cfg.norm)
+        x = x + attn.attention_forward(p["cross_attn"], cfg, h, positions,
+                                       kind="full", kv_src=extras["kv_src"])
+        x = x + _mlp(p, cfg, x)
+    elif kind == "encoder_attention":
+        h = apply_norm(p["ln_attn"], x, cfg.norm)
+        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
+                                       kind="full")
+        x = x + _mlp(p, cfg, x)
+    elif kind == "recurrent":
         h = apply_norm(p["ln_rec"], x, cfg.norm)
         x = x + rec_mod.recurrent_block_forward(p["rec"], cfg, h)
-    return _mlp_residual(p, cfg, x)
+        x = x + _mlp(p, cfg, x)
+    elif kind == "mlstm":
+        h = apply_norm(p["ln"], x, cfg.norm)
+        x = x + xlstm_mod.mlstm_block_forward(p["cell"], cfg, h,
+                                              _chunk(cfg, extras))
+    elif kind == "slstm":
+        h = apply_norm(p["ln"], x, cfg.norm)
+        x = x + xlstm_mod.slstm_block_forward(p["cell"], cfg, h)
+    else:
+        raise ValueError(kind)
+    return x, aux
 
 
-def block_prefill(p, cfg, kind: str, x, positions, cache_len: int):
+def block_prefill(p, cfg, kind: str, x, positions, cache_len: int, extras):
     """Returns (x, cache)."""
-    _check_block(cfg, kind)
-    if kind == "attention":
+    if kind in ("attention", "moe_attention"):
         h = apply_norm(p["ln_attn"], x, cfg.norm)
-        y, cache = attn.attention_prefill(p["attn"], cfg, h, positions,
-                                          cache_len)
-    else:
+        if cfg.mla is not None:
+            y, cache = attn.mla_prefill(p["attn"], cfg, h, positions,
+                                        cache_len)
+        else:
+            y, cache = attn.attention_prefill(p["attn"], cfg, h, positions,
+                                              cache_len)
+        x = x + y
+        return x + _ffn(p, cfg, kind, x, extras)[0], cache
+    if kind == "cross_attention":
+        cache = attn.cross_attention_build_cache(p["attn"], cfg,
+                                                 extras["kv_src"])
+        h = apply_norm(p["ln_attn"], x, cfg.norm)
+        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
+                                       kind="full", kv_src=extras["kv_src"])
+        return _gated_mlp(p, cfg, x), cache
+    if kind == "encdec_attention":
+        h = apply_norm(p["ln_self"], x, cfg.norm)
+        y, self_cache = attn.attention_prefill(p["self_attn"], cfg, h,
+                                               positions, cache_len,
+                                               kind="causal")
+        x = x + y
+        cross_cache = attn.cross_attention_build_cache(
+            p["cross_attn"], cfg, extras["kv_src"])
+        h = apply_norm(p["ln_cross"], x, cfg.norm)
+        x = x + attn.attention_forward(p["cross_attn"], cfg, h, positions,
+                                       kind="full", kv_src=extras["kv_src"])
+        return x + _mlp(p, cfg, x), {"self": self_cache, "cross": cross_cache}
+    if kind == "recurrent":
         h = apply_norm(p["ln_rec"], x, cfg.norm)
-        y, cache = rec_mod.recurrent_block_prefill(p["rec"], cfg, h)
-    return _mlp_residual(p, cfg, x + y), cache
+        y, state = rec_mod.recurrent_block_prefill(p["rec"], cfg, h)
+        x = x + y
+        return x + _mlp(p, cfg, x), state
+    if kind == "mlstm":
+        h = apply_norm(p["ln"], x, cfg.norm)
+        y, state = xlstm_mod.mlstm_block_prefill(p["cell"], cfg, h,
+                                                 _chunk(cfg, extras))
+        return x + y, state
+    if kind == "slstm":
+        h = apply_norm(p["ln"], x, cfg.norm)
+        y, state = xlstm_mod.slstm_block_prefill(p["cell"], cfg, h)
+        return x + y, state
+    raise ValueError(kind)
 
 
-def block_decode(p, cfg, kind: str, x_t, cache, cur_pos):
+def block_decode(p, cfg, kind: str, x_t, cache, cur_pos, extras):
     """x_t: [B, 1, d]. Returns (x_t, new_cache)."""
-    _check_block(cfg, kind)
-    if kind == "attention":
+    if kind in ("attention", "moe_attention"):
         h = apply_norm(p["ln_attn"], x_t, cfg.norm)
-        y, cache = attn.attention_decode(p["attn"], cfg, h, cache, cur_pos)
-    else:
+        if cfg.mla is not None:
+            y, cache = attn.mla_decode(p["attn"], cfg, h, cache, cur_pos)
+        else:
+            y, cache = attn.attention_decode(p["attn"], cfg, h, cache,
+                                             cur_pos)
+        x_t = x_t + y
+        return x_t + _ffn(p, cfg, kind, x_t, extras)[0], cache
+    if kind == "cross_attention":
+        h = apply_norm(p["ln_attn"], x_t, cfg.norm)
+        x_t = x_t + attn.cross_attention_decode(p["attn"], cfg, h, cache)
+        return _gated_mlp(p, cfg, x_t), cache
+    if kind == "encdec_attention":
+        h = apply_norm(p["ln_self"], x_t, cfg.norm)
+        y, self_cache = attn.attention_decode(p["self_attn"], cfg, h,
+                                              cache["self"], cur_pos)
+        x_t = x_t + y
+        h = apply_norm(p["ln_cross"], x_t, cfg.norm)
+        x_t = x_t + attn.cross_attention_decode(p["cross_attn"], cfg, h,
+                                                cache["cross"])
+        return x_t + _mlp(p, cfg, x_t), {"self": self_cache,
+                                         "cross": cache["cross"]}
+    if kind == "recurrent":
         h = apply_norm(p["ln_rec"], x_t, cfg.norm)
-        y, cache = rec_mod.recurrent_block_decode(p["rec"], cfg, h, cache)
-    return _mlp_residual(p, cfg, x_t + y), cache
+        y, state = rec_mod.recurrent_block_decode(p["rec"], cfg, h, cache)
+        x_t = x_t + y
+        return x_t + _mlp(p, cfg, x_t), state
+    if kind == "mlstm":
+        h = apply_norm(p["ln"], x_t, cfg.norm)
+        y, state = xlstm_mod.mlstm_block_decode(p["cell"], cfg, h, cache)
+        return x_t + y, state
+    if kind == "slstm":
+        h = apply_norm(p["ln"], x_t, cfg.norm)
+        y, state = xlstm_mod.slstm_block_decode(p["cell"], cfg, h, cache)
+        return x_t + y, state
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -181,21 +313,28 @@ def block_decode(p, cfg, kind: str, x_t, cache, cur_pos):
 # ---------------------------------------------------------------------------
 
 
+def _plan(cfg, kinds_override: Optional[List[str]]):
+    if kinds_override is not None:
+        return list(kinds_override), (), 0, []
+    return stack_plan(cfg)
+
+
 def _group(tree: PyTree, g: int) -> PyTree:
     """Group g's slice of a tree stacked along axis 0 (views)."""
     return tree_map(lambda t: t[g], tree)
 
 
-def init_stack(b: ParamBuilder, cfg):
+def init_stack(b: ParamBuilder, cfg,
+               kinds_override: Optional[List[str]] = None):
     """Initializes {'prefix': {...}, 'groups': stacked, 'suffix': {...}}."""
-    prefix, unit, n_groups, suffix = stack_plan(cfg)
+    prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
     s = b.child("stack")
     pfx = s.child("prefix")
     for i, kind in enumerate(prefix):
         init_block(pfx.child(f"l{i}"), cfg, kind)
     if n_groups:
         group_trees = []
-        axes_tree = None
+        gb = None
         n_build = 1 if b.abstract else n_groups
         for _ in range(n_build):
             gb = ParamBuilder(s.generator, "float32", abstract=b.abstract)
@@ -203,11 +342,11 @@ def init_stack(b: ParamBuilder, cfg):
             for pos, kind in enumerate(unit):
                 init_block(gb.child(f"b{pos}"), cfg, kind)
             group_trees.append(gb.params)
-            axes_tree = gb.axes
         if b.abstract:
             group_trees = group_trees * n_groups
         s.params["groups"] = stack_params(group_trees)
-        s.axes["groups"] = _prepend_layers(axes_tree)
+        s.axes["groups"] = _prepend_layers(gb.axes)
+        s.float32_read["groups"] = gb.float32_read
     sfx = s.child("suffix")
     for i, kind in enumerate(suffix):
         init_block(sfx.child(f"l{i}"), cfg, kind)
@@ -219,27 +358,37 @@ def _prepend_layers(axes_tree):
     return ("layers",) + tuple(axes_tree)
 
 
-def stack_forward(params, cfg, x, positions):
-    prefix, unit, n_groups, suffix = stack_plan(cfg)
+def stack_forward(params, cfg, x, positions, extras,
+                  kinds_override: Optional[List[str]] = None):
+    """Returns (x, aux): aux is the blocks' summed aux loss, a float32
+    scalar (0 without MoE blocks)."""
+    prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
     sp = params["stack"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(p_blk, kind, x, aux):
+        x, a = block_forward(p_blk, cfg, kind, x, positions, extras)
+        return x, aux if a is None else aux + a
+
     for i, kind in enumerate(prefix):
-        x = block_forward(sp["prefix"][f"l{i}"], cfg, kind, x, positions)
+        x, aux = run(sp["prefix"][f"l{i}"], kind, x, aux)
     for g in range(n_groups):
         gp = _group(sp["groups"], g)
         for pos, kind in enumerate(unit):
-            x = block_forward(gp[f"b{pos}"], cfg, kind, x, positions)
+            x, aux = run(gp[f"b{pos}"], kind, x, aux)
     for i, kind in enumerate(suffix):
-        x = block_forward(sp["suffix"][f"l{i}"], cfg, kind, x, positions)
-    return x
+        x, aux = run(sp["suffix"][f"l{i}"], kind, x, aux)
+    return x, aux
 
 
-def stack_prefill(params, cfg, x, positions, cache_len):
-    prefix, unit, n_groups, suffix = stack_plan(cfg)
+def stack_prefill(params, cfg, x, positions, cache_len, extras,
+                  kinds_override: Optional[List[str]] = None):
+    prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
     sp = params["stack"]
     caches: Dict[str, Any] = {"prefix": {}, "suffix": {}}
     for i, kind in enumerate(prefix):
         x, caches["prefix"][f"l{i}"] = block_prefill(
-            sp["prefix"][f"l{i}"], cfg, kind, x, positions, cache_len)
+            sp["prefix"][f"l{i}"], cfg, kind, x, positions, cache_len, extras)
     if n_groups:
         per_group = []
         for g in range(n_groups):
@@ -247,23 +396,24 @@ def stack_prefill(params, cfg, x, positions, cache_len):
             gcaches = {}
             for pos, kind in enumerate(unit):
                 x, gcaches[f"b{pos}"] = block_prefill(
-                    gp[f"b{pos}"], cfg, kind, x, positions, cache_len)
+                    gp[f"b{pos}"], cfg, kind, x, positions, cache_len, extras)
             per_group.append(gcaches)
         caches["groups"] = stack_params(per_group)
     for i, kind in enumerate(suffix):
         x, caches["suffix"][f"l{i}"] = block_prefill(
-            sp["suffix"][f"l{i}"], cfg, kind, x, positions, cache_len)
+            sp["suffix"][f"l{i}"], cfg, kind, x, positions, cache_len, extras)
     return x, caches
 
 
-def stack_decode(params, cfg, x_t, caches, cur_pos):
-    prefix, unit, n_groups, suffix = stack_plan(cfg)
+def stack_decode(params, cfg, x_t, caches, cur_pos, extras,
+                 kinds_override: Optional[List[str]] = None):
+    prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
     sp = params["stack"]
     new_caches: Dict[str, Any] = {"prefix": {}, "suffix": {}}
     for i, kind in enumerate(prefix):
         x_t, new_caches["prefix"][f"l{i}"] = block_decode(
             sp["prefix"][f"l{i}"], cfg, kind, x_t,
-            caches["prefix"][f"l{i}"], cur_pos)
+            caches["prefix"][f"l{i}"], cur_pos, extras)
     if n_groups:
         per_group = []
         for g in range(n_groups):
@@ -271,11 +421,12 @@ def stack_decode(params, cfg, x_t, caches, cur_pos):
             ngc = {}
             for pos, kind in enumerate(unit):
                 x_t, ngc[f"b{pos}"] = block_decode(
-                    gp[f"b{pos}"], cfg, kind, x_t, gc[f"b{pos}"], cur_pos)
+                    gp[f"b{pos}"], cfg, kind, x_t, gc[f"b{pos}"], cur_pos,
+                    extras)
             per_group.append(ngc)
         new_caches["groups"] = stack_params(per_group)
     for i, kind in enumerate(suffix):
         x_t, new_caches["suffix"][f"l{i}"] = block_decode(
             sp["suffix"][f"l{i}"], cfg, kind, x_t,
-            caches["suffix"][f"l{i}"], cur_pos)
+            caches["suffix"][f"l{i}"], cur_pos, extras)
     return x_t, new_caches

@@ -13,6 +13,12 @@ lie. It casts the params once, at construction, to what the model reads
 the activation dtype), where the reference casts each weight on every call;
 the values are the same.
 
+`extra_batch` (numpy arrays: whisper's `encoder_embeddings`, the VLM's
+`frontend_embeddings`) goes onto the params' device once, at construction,
+and joins every wave's batch. Its rows are `batch_slots`, so a wave with
+fewer requests than slots fails, in the reference as here (ROADMAP Queue 3,
+"Properties").
+
 Observability: every wave records prefill and per-step decode wall time
 into the active metrics registry (`serve.engine.prefill_seconds`,
 `serve.engine.step_seconds`, `serve.engine.tokens`); each is timed to the
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,13 +59,16 @@ class Request:
 class Engine:
     def __init__(self, model: Model, params, max_len: int = 512,
                  batch_slots: int = 8, distributed_cache: bool = False,
-                 seed: int = 0, device: str = "tpu_v5e",
-                 profile_kernels: bool = False):
+                 extra_batch: Optional[Dict[str, Any]] = None, seed: int = 0,
+                 device: str = "tpu_v5e", profile_kernels: bool = False):
         self.model = model
         self.params = model.cast_params(params)
         self.torch_device = params["embed"].device
         self.max_len = max_len
         self.batch_slots = batch_slots
+        self.extra_batch = {k: torch.as_tensor(np.asarray(v),
+                                               device=self.torch_device)
+                            for k, v in (extra_batch or {}).items()}
         self.device = device
         self.profile_kernels = profile_kernels
         self._profiled = False
@@ -107,7 +116,8 @@ class Engine:
         toks = np.zeros((B, S), np.int32)
         for i, r in enumerate(wave):  # left-pad to a common length
             toks[i, S - len(r.prompt):] = r.prompt
-        batch = {"tokens": torch.as_tensor(toks, device=self.torch_device)}
+        batch = {"tokens": torch.as_tensor(toks, device=self.torch_device),
+                 **self.extra_batch}
         t0 = time.perf_counter()
         state, logits = self._prefill(self.params, batch)
         temps = np.array([r.temperature for r in wave], np.float32)

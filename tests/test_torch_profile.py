@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.kernels import profile as j_profile  # noqa: E402
 from repro_torch.autotune.registry import Registry  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import profile as t_profile  # noqa: E402
@@ -95,8 +96,7 @@ def test_profiling_env_var(monkeypatch, value, on):
     ops.reset_profiling()
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "h2o-danube-1.8b",
-                                  "deepseek-67b"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_model_workloads_match_reference(arch):
     want = j_profile.model_workloads(j_get_config(arch))
     got = t_profile.model_workloads(t_get_config(arch))
