@@ -7,9 +7,10 @@ Builds the port's CUDA kernels (matmul and flash attention in two variants
 each, wgmma and simt; RG-LRU scan) from the five sources in this checkout,
 one nvcc each, all started together; holds each kernel against its plain
 PyTorch version on the card over its knob corners, each matmul and
-attention case naming the variant it ran; then drives eight paths through
-the port's entry points at full width, each with the launch counts set to 0
-just before it and read just after, and asserts that every GEMM of the
+attention case naming the variant it ran; then drives nine paths through
+the port's entry points at full width (eight serving or tuning, one
+training), each with the launch counts set to 0 just before it and read
+just after, and asserts that every GEMM of the
 first two paths, and their attention, ran the wgmma variant. The first
 two:
 
@@ -60,17 +61,37 @@ line then holds one decode step to `forward` (prefill prompt - 1 tokens)
 at float32 activations, with the check's peak memory; MoE configs at
 capacity factor E / top_k so that no token drops.
 
+A ninth path trains the full RecurrentGemma-2B config (float32 params,
+bf16 activations, remat "dots") through the training launcher's own
+objects (`launch.train.build_training` at its defaults: batch 8, seq 128,
+lr 3e-3 cosine, weight decay 0.01) and `train.train_loop.run_training`
+with --steps 6, one checkpoint at the last step (keep 1) and
+profile_kernels=True, so the loop's probe launches each kernel, each then
+held against its plain version. The `train_path` line gives the params,
+peak memory after init and during training, the step's p50/p90 (steps
+2-6), tokens/s, every step's loss, grad norm and lr, the checkpoint's
+seconds and bytes beside the directory's free space, the data-sheet bound
+(`train_bounds`) with its share, and the host's enqueue share of a step,
+the forward-and-backward and optimizer halves, and the device's kernel
+time (`train_split`). `train_restart` runs the reference's fault-tolerance case
+on the card (fail at step 15, resume from the step-10 checkpoint, the
+final loss within rel 1e-5 of an uninterrupted run), and
+`zoo_train_check` holds each smoke config's loss, gradients and one
+optimizer update on the card to the port on the CPU at float32.
+
 Kernel times come two ways: `ms`, CUDA events around calls launched back
 to back (where a kernel is faster than its wrapper's host work, that is the
 host's time), and `device_ms`, the same calls captured into one CUDA graph
 and replayed, which the host cannot pace. The library call gets both too.
 
-Every phase prints one JSON line. The line before the last is the card's
+Every phase prints one JSON line, with `at_s`, the seconds since the
+script started. The line before the last is the card's
 name and power limit as nvidia-smi prints them; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, and prints no result, without
 a CUDA card or outside a checkout of the repository. Imports nothing of JAX.
 """
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -104,8 +125,14 @@ SOURCES = ("matmul", "matmul_wgmma", "flash_attention",
            "flash_attention_wgmma", "rg_lru")
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; `at_s` is the seconds since the script started, so
+    each phase's seconds are the difference to the line before."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -968,18 +995,14 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
     return summary, model, params
 
 
-def decode_split(model, params, torch_device: str, batch: int = 4,
-                 prompt: int = 512, steps: int = 10, extra=None) -> dict:
-    """Where a decode step's time goes, on the engine's own (cast) params
-    after a prefill of `batch` x `prompt` random tokens: the host's time to
-    enqueue one `decode_step` (no synchronisation) beside the step's wall
-    time to a `torch.cuda.synchronize()`, and, from a `torch.profiler`
-    trace of 3 more steps, the device's kernel time and kernel count per
-    step and the kernels that take most of it. `extra` (the stub
-    frontend's numpy inputs, `batch` rows) joins the prefill's batch.
+def step_split(step, torch_device: str, steps: int, profiled: int) -> dict:
+    """Where one step's time goes: the host's time to enqueue `step()`
+    (to its return, no synchronisation) beside its wall time to a
+    `torch.cuda.synchronize()`, medians over `steps` calls; then
+    `profiled` more calls under torch.profiler: the device's kernel time
+    and kernel count per step and the kernels that take most of it.
     Enqueue close to wall, and kernel time far below it, mean the host
     paces the step."""
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -989,6 +1012,50 @@ def decode_split(model, params, torch_device: str, batch: int = 4,
     def sync():
         if on_card:
             torch.cuda.synchronize()
+
+    sync()
+    enqueue, wall = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        sync()
+        enqueue.append(t1 - t0)
+        wall.append(time.perf_counter() - t0)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with profile(activities=acts) as prof:
+        for _ in range(profiled):
+            step()
+        sync()
+    # the kernels' own events: a CPU op's self device time repeats its
+    # kernels' time
+    avgs = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kernel_us = sum(e.self_device_time_total for e in avgs)
+    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]
+    wall_s = statistics.median(wall)
+    return {"steps_timed": steps, "enqueue_s": statistics.median(enqueue),
+            "wall_s": wall_s,
+            "enqueue_share": statistics.median(enqueue) / wall_s,
+            "profiled_steps": profiled,
+            "device_kernel_ms_per_step": kernel_us / profiled / 1e3,
+            "device_busy_share": kernel_us / profiled / 1e6 / wall_s,
+            "kernels_per_step": sum(e.count for e in avgs) / profiled,
+            "top_kernels": [{"name": e.key[:80],
+                             "per_step": e.count / profiled,
+                             "ms_per_step": e.self_device_time_total
+                             / profiled / 1e3} for e in top]}
+
+
+def decode_split(model, params, torch_device: str, batch: int = 4,
+                 prompt: int = 512, steps: int = 10, extra=None) -> dict:
+    """`step_split` of a decode step on the engine's own (cast) params
+    after a prefill of `batch` x `prompt` random tokens: `steps` - 4 timed
+    steps after one warm-up, 3 profiled. `extra` (the stub frontend's
+    numpy inputs, `batch` rows) joins the prefill's batch."""
+    import numpy as np
+    import torch
 
     rng = np.random.RandomState(2)
     toks = torch.as_tensor(rng.randint(0, model.cfg.vocab_size, size=(
@@ -1001,39 +1068,11 @@ def decode_split(model, params, torch_device: str, batch: int = 4,
                                  max_len=prompt + steps + 8)
         nxt = toks[:, -1]
         state, _ = model.decode_step(params, state, nxt)  # warm
-        sync()
-        enqueue, wall = [], []
-        for _ in range(steps - 4):
-            t0 = time.perf_counter()
+
+        def step():
+            nonlocal state
             state, _ = model.decode_step(params, state, nxt)
-            t1 = time.perf_counter()
-            sync()
-            enqueue.append(t1 - t0)
-            wall.append(time.perf_counter() - t0)
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if on_card else [])
-        with profile(activities=acts) as prof:
-            for _ in range(3):
-                state, _ = model.decode_step(params, state, nxt)
-            sync()
-    # the kernels' own events: a CPU op's self device time repeats its
-    # kernels' time
-    avgs = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    kernel_us = sum(e.self_device_time_total for e in avgs)
-    kernels = sum(e.count for e in avgs)
-    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]
-    wall_s = statistics.median(wall)
-    return {"steps_timed": len(wall), "enqueue_s": statistics.median(enqueue),
-            "wall_s": wall_s,
-            "enqueue_share": statistics.median(enqueue) / wall_s,
-            "profiled_steps": 3,
-            "device_kernel_ms_per_step": kernel_us / 3 / 1e3,
-            "device_busy_share": kernel_us / 3 / 1e6 / wall_s,
-            "kernels_per_step": kernels / 3,
-            "top_kernels": [{"name": e.key[:80], "per_step": e.count / 3,
-                             "ms_per_step": e.self_device_time_total / 3e3}
-                            for e in top]}
+        return step_split(step, torch_device, steps - 4, 3)
 
 
 def serve_consistency(cfg, params, torch_device: str, prompts, steps: int = 8
@@ -1164,6 +1203,400 @@ def zoo_serve_phase(torch_device: str, cfg, published_layers: int,
         torch.cuda.empty_cache()
     return {"launches": sv, "launches_by_variant": serve[
         "launches_by_variant"]}
+
+
+# The training path: the launcher's defaults (batch 8, seq 128, lr 3e-3
+# cosine, weight decay 0.01) on the full RecurrentGemma-2B config, 6 steps
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_STEPS = 6
+
+
+def train_bounds(cfg, params, batch: int, seq: int, opt_cfg) -> dict:
+    """Data-sheet bound of one train step on an H100 SXM, the sum of two
+    phases. The forward and backward products over the bf16 peak: 6 FLOPs
+    per weight per token (2 forward, 4 backward) for every weight applied
+    per token (each leaf of two or more dims: the projections and the
+    depthwise conv taps; the embedding gather does none), the attention
+    products (QK^T and PV over the kept (q, k) pairs: causal within the
+    window; x3 with the backward) and the logits against the embedding
+    (tied) or lm_head, x6; remat's recomputation is not counted. The
+    optimizer's bytes over the HBM rate: each param read and written, its
+    gradient read, each moment read and written at `moment_dtype`, and a
+    float32 master read and written. Covers the block kinds of the path it
+    bounds (attention, recurrent)."""
+    from repro_torch.models.common import tree_leaves
+    tokens = batch * seq
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    window = cfg.local_window if cfg.attention_kind == "local" else seq
+    kept = sum(min(t + 1, window) for t in range(seq))
+    flops = 0.0
+    for kind, layers, blk in stack_blocks(cfg, params):
+        assert kind in ("attention", "recurrent"), kind
+        n = sum(t.numel() for t in tree_leaves(blk) if t.dim() >= 2)
+        flops += 6.0 * n * tokens
+        if kind == "attention":
+            flops += 3 * 4.0 * H * hd * batch * kept * layers
+    flops += 6.0 * cfg.d_model * cfg.padded_vocab_size * tokens
+    n_params, param_bytes = tree_numel_bytes(params)
+    moment = 2 if opt_cfg.moment_dtype == "bfloat16" else 4
+    master = 8 if opt_cfg.master_fp32 else 0
+    # params read and written, the gradient (the param dtype) read, m and
+    # v read and written, the master read and written
+    opt_bytes = 3 * param_bytes + n_params * (4 * moment + master)
+    flops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"tflop": flops / 1e12, "flops_ms": flops_ms,
+            "optimizer_gbytes": opt_bytes / 1e9, "optimizer_ms": opt_ms,
+            "bound_ms": flops_ms + opt_ms}
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """While entered, times `CheckpointManager.save` (the synchronous copy
+    to the host) and `wait` (the file writes of an async save); yields the
+    list of their seconds."""
+    from repro_torch.train.checkpoint import CheckpointManager as Manager
+    orig = Manager.save, Manager.wait
+    seconds: list = []
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+        return run
+
+    Manager.save, Manager.wait = map(timed, orig)
+    try:
+        yield seconds
+    finally:
+        Manager.save, Manager.wait = orig
+
+
+def dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def train_split(model, opt, state, data, torch_device: str, steps: int = 3
+                ) -> dict:
+    """`step_split` of a train step on the state `run_training` returned
+    (`steps` timed, 1 profiled; the batches are on the device first), and
+    the two halves of one more step apart, each to a synchronisation: the
+    forward and backward pass (`loss_and_grads`) and the optimizer's
+    `update`."""
+    import torch
+
+    from repro_torch.train.train_loop import loss_and_grads, make_train_step
+    step_fn = make_train_step(model, opt)
+    batches = [{k: torch.as_tensor(v, device=torch_device)
+                for k, v in next(data).items()} for _ in range(steps + 2)]
+    feed = iter(batches)
+
+    def step():
+        nonlocal state
+        state, _ = step_fn(state, next(feed))
+    split = step_split(step, torch_device, steps, 1)
+
+    def sync():
+        if torch_device != "cpu":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(model, state["params"], batches[-1])
+    sync()
+    t1 = time.perf_counter()
+    opt.update(grads, state["opt"], state["params"])
+    sync()
+    return {**split, "forward_backward_s": t1 - t0,
+            "optimizer_s": time.perf_counter() - t1}
+
+
+def drive_train_path(torch_device: str, modules, ckpt_dir: str,
+                     smoke: bool = False) -> dict:
+    """The training path through the launcher's own objects
+    (`launch.train.build_training` with --steps 6 --checkpoint-every 6 on
+    the full config; `smoke` takes the smoke config, for a CPU rehearsal):
+    the train state from `init_train_state` (seed 0), then
+    `run_training` with keep_n=1 and profile_kernels=True, so the one save
+    is the final one and the probe launches each kernel; the launch counts
+    are set to 0 just before the state is made and read just after
+    `run_training` returns. The checkpoint directory is removed at the
+    end. Returns the `train_path` summary."""
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels.profile import model_workloads
+    from repro_torch.launch.train import build_training, parser
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train.train_loop import init_train_state, run_training
+    mm, fa, lru = modules
+    on_card = torch_device != "cpu"
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--checkpoint-every", str(TRAIN_STEPS), "--checkpoint-dir",
+            ckpt_dir, "--torch-device", torch_device]
+    args = parser().parse_args(argv + (["--smoke"] if smoke else []))
+    run = build_training(args)
+    loop = dataclasses.replace(run.loop, keep_n=1, profile_kernels=True,
+                               log_every=1)
+    cfg = run.model.cfg
+    os.makedirs(ckpt_dir, exist_ok=True)
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(run.model, run.opt, args.seed, torch_device)
+    init_peak = 0.0
+    if on_card:
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = tree_numel_bytes(state["params"])
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.push_registry(reg)
+    logs = []
+    try:
+        with timed_checkpoints() as saves:
+            t0 = time.perf_counter()
+            state, hist = run_training(
+                run.model, run.opt, run.data, loop, seed=args.seed,
+                train_state=state, log_fn=logs.append,
+                torch_device=torch_device)
+            wall = time.perf_counter() - t0
+        launches = {"matmul": mm.matmul.launches,
+                    "flash_attention": fa.flash_attention.launches,
+                    "rg_lru": lru.rg_lru.launches}
+        by_variant = {"matmul": dict(mm.matmul.launches_by_variant),
+                      "flash_attention": dict(
+                          fa.flash_attention.launches_by_variant)}
+    finally:
+        obs_metrics.pop_registry(reg)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    ckpt_bytes = dir_bytes(ckpt_dir)
+    ckpt_steps = sorted(p.name for p in Path(ckpt_dir).iterdir())
+    shutil.rmtree(ckpt_dir)
+    steps = reg.histogram("train.step_seconds").state()["window"]
+    timed = steps[1:]  # steps 2.. (the first carries the warm-up)
+    p50 = statistics.median(timed)
+    p90 = sorted(timed)[max(0, int(round(0.9 * len(timed))) - 1)]
+    tokens = args.batch * args.seq
+    bounds = train_bounds(cfg, state["params"], args.batch, args.seq,
+                          run.opt.cfg)
+    losses = [h["loss"] for h in hist]
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+        "activation_dtype": cfg.activation_dtype,
+        "remat_policy": cfg.remat_policy,
+        "moment_dtype": run.opt.cfg.moment_dtype,
+        "master_fp32": run.opt.cfg.master_fp32,
+        "params": n_params, "param_bytes": param_bytes,
+        "batch": args.batch, "seq": args.seq, "lr": args.lr,
+        "steps": len(hist), "init_seconds": init_s,
+        "run_training_seconds": wall,
+        "step_s": steps, "step_s_p50": p50, "step_s_p90": p90,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / p50,
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "grad_norm": [h["grad_norm"] for h in hist],
+        "lr_by_step": [h["lr"] for h in hist], "loop_log": logs,
+        "checkpoint": {"steps_saved": ckpt_steps, "bytes": ckpt_bytes,
+                       "seconds": sum(saves),
+                       "free_gb_before": free_gb},
+        "probe_workloads": {k: list(w.dims) for k, w in
+                            model_workloads(cfg).items()},
+        "launches": launches, "launches_by_variant": by_variant,
+        **bounds}
+    summary["bound_share"] = bounds["bound_ms"] / 1e3 / p50
+    if on_card:
+        summary["init_max_memory_allocated_gb"] = init_peak
+        summary["max_memory_allocated_gb"] = peak
+    summary["split"] = train_split(run.model, run.opt, state, run.data,
+                                   torch_device)
+    summary["step_enqueue_share"] = summary["split"]["enqueue_share"]
+    assert len(hist) == TRAIN_STEPS, len(hist)
+    assert all(math.isfinite(x) for x in losses + summary["grad_norm"]), \
+        hist
+    assert ckpt_steps == [f"step_{TRAIN_STEPS:08d}"], ckpt_steps
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+    return summary
+
+
+def train_restart(torch_device: str, tmp: str, total: int = 30,
+                  fail_at: int = 15, every: int = 10) -> dict:
+    """The reference's own fault-tolerance case on the card
+    (tests/test_train.py): smoke xlstm-350m with 2 layers, batch 2, seq
+    16, data seed 3, AdamW lr 1e-3; one run uninterrupted, one failing at
+    step 15 and resumed from the step-10 checkpoint with the data replayed
+    from there. The final losses agree within rel 1e-5."""
+    import shutil
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train.data import DataConfig, data_iterator
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.train_loop import LoopConfig, run_training
+    cfg = get_smoke_config("xlstm-350m").replace(num_layers=2)
+    model = build_model(cfg)
+    opt = AdamW(AdamWConfig(lr=1e-3))
+
+    def data():
+        return data_iterator(cfg, DataConfig(batch_size=2, seq_len=16,
+                                             seed=3))
+
+    def loop(name):
+        return LoopConfig(total_steps=total, checkpoint_every=every,
+                          checkpoint_dir=os.path.join(tmp, name),
+                          log_every=1000, async_checkpoint=False)
+
+    quiet = dict(log_fn=lambda s: None, torch_device=torch_device)
+    t0 = time.perf_counter()
+    _, full = run_training(model, opt, data(), loop("full"), **quiet)
+    failed = False
+    try:
+        run_training(model, opt, data(), loop("resumed"),
+                     fail_at_step=fail_at, **quiet)
+    except RuntimeError as e:
+        failed = "simulated node failure" in str(e)
+    assert failed, "the run did not fail where asked"
+    ckpt_bytes = dir_bytes(os.path.join(tmp, "resumed"))
+    it = data()
+    for _ in range(every):
+        next(it)
+    _, resumed = run_training(model, opt, it, loop("resumed"), **quiet)
+    seconds = time.perf_counter() - t0
+    for name in ("full", "resumed"):
+        shutil.rmtree(os.path.join(tmp, name))
+    rel = abs(resumed[-1]["loss"] - full[-1]["loss"]) / abs(
+        full[-1]["loss"])
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": 2,
+           "seq": 16, "data_seed": 3, "steps": total,
+           "checkpoint_every": every, "fail_at_step": fail_at,
+           "resumed_from": every, "resumed_steps": [
+               resumed[0]["step"], resumed[-1]["step"]],
+           "full_loss_end": [h["loss"] for h in full[-3:]],
+           "resumed_loss_end": [h["loss"] for h in resumed[-3:]],
+           "final_rel_diff": rel, "tolerance": "rel 1e-5",
+           "checkpoint_bytes": ckpt_bytes, "seconds": seconds}
+    assert resumed[-1]["step"] == total and rel <= 1e-5, out
+    return out
+
+
+def zoo_train_check(torch_device: str) -> list:
+    """Each smoke config's training math on the card against the port on
+    the CPU, at float32 activations (TF32 off): from the same seed-0
+    params (drawn on the CPU, copied to the card) and the same
+    `data_iterator` batch (2 x 16), the loss and every gradient
+    (`loss_and_grads`) within 1e-4 * max|cpu| + 1e-4 * |cpu| (plus one
+    bf16 ulp for a bf16 param's gradient, which is the float32 gradient
+    rounded to bf16), then one
+    `make_train_step` on each, whose param updates are compared where the
+    CPU's gradient is above that tolerance (Adam moves a weight by about
+    lr whatever its gradient's size, so a gradient of rounding noise may
+    step either way), within 1e-4 * max|cpu| + 1e-4 * |cpu| plus the
+    gradient's tolerance carried through the first step: the update is
+    -lr * x / (x + eps) in x = |g| * clip scale (and the weight decay), so
+    a gradient within tol_g moves it by up to
+    lr * scale * eps * tol_g / (x + eps)^2, which matters where x is a few
+    eps. An eleventh case trains glm4-9b (bf16 params at
+    full size) with bf16 params, bf16 moments and a float32 master copy,
+    whose master updates are compared. Returns one entry per
+    case with its worst error as a share of its tolerance."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.data import DataConfig, data_iterator
+    from repro_torch.train.optimizer import AdamW, AdamWConfig, global_norm
+    from repro_torch.train.train_loop import loss_and_grads, make_train_step
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items()
+                    for k2, v2 in flat(v, f"{prefix}/{k}").items()}
+        return {prefix: tree}
+
+    def share(got, want, mask=None, extra=0.0):
+        if want.dtype == torch.bfloat16:
+            # the float32 gradient rounded to a bf16 leaf's dtype: a last
+            # bit that differs in float32 may round it either way
+            extra = extra + torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp(min=1e-30))) - 7)
+        got, want = got.detach().float().cpu(), want.detach().float()
+        err = (got - want).abs()
+        tol = 1e-4 * float(want.abs().max()) + 1e-4 * want.abs() + extra
+        if mask is not None:
+            err, tol = err[mask], tol[mask]
+        if err.numel() == 0:
+            return 0.0
+        assert bool(torch.isfinite(got).all())
+        return float((err / tol.clamp(min=1e-30)).max())
+
+    cases = [(a, "float32", {}) for a in ARCH_IDS] + [
+        ("glm4-9b", "bfloat16", dict(moment_dtype="bfloat16",
+                                     master_fp32=True))]
+    out = []
+    for arch, param_dtype, opt_kw in cases:
+        cfg = get_smoke_config(arch).replace(activation_dtype="float32",
+                                             param_dtype=param_dtype)
+        model = build_model(cfg)
+        batch = next(data_iterator(cfg, DataConfig(batch_size=2,
+                                                   seq_len=16, seed=0)))
+        params = model.init(0, "cpu")
+        worst = {}
+        states = {}
+        for dev in ("cpu", torch_device):
+            p = tree_map(lambda t: t.to(dev, copy=True), params)
+            opt = AdamW(AdamWConfig(lr=1e-3, **opt_kw))
+            states[dev] = (p, opt, {"params": p, "opt": opt.init(p),
+                                    "step": torch.zeros(
+                                        (), dtype=torch.int32, device=dev)})
+        tb = {d: {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+              for d in states}
+        ref = loss_and_grads(model, states["cpu"][0], tb["cpu"])
+        got = loss_and_grads(model, states[torch_device][0],
+                             tb[torch_device])
+        worst["loss"] = share(got[0], ref[0])
+        gref, ggot = flat(ref[2]), flat(got[2])
+        worst["grads"] = max(share(ggot[k], g) for k, g in gref.items())
+        before = {k: t.detach().float().clone()
+                  for k, t in flat(params).items()}
+        for dev, (_, opt, st) in states.items():
+            make_train_step(model, opt)(st, tb[dev])
+        upd = 0.0
+        part = "master" if opt_kw.get("master_fp32") else "params"
+        after = {d: flat(st[part] if part == "params" else st["opt"][part])
+                 for d, (_, _, st) in states.items()}
+        ocfg = states["cpu"][1].cfg
+        scale = min(1.0, ocfg.grad_clip_norm / max(float(
+            global_norm(ref[2])), 1e-9))
+        for k, g in gref.items():
+            g = g.float().abs()
+            tol_g = 1e-4 * float(g.max()) + 1e-4 * g
+            x = g * scale
+            carried = (ocfg.lr * scale * ocfg.eps * tol_g
+                       / (x + ocfg.eps) ** 2)
+            want = after["cpu"][k].float() - before[k]
+            have = after[torch_device][k].float().cpu() - before[k]
+            upd = max(upd, share(have, want, g > tol_g, carried))
+        worst["update"] = upd
+        entry = {"arch": arch, "param_dtype": param_dtype,
+                 "moment_dtype": opt_kw.get("moment_dtype", "float32"),
+                 "master_fp32": opt_kw.get("master_fp32", False),
+                 "loss_card": float(got[0]), "loss_cpu": float(ref[0]),
+                 "worst_share_of_tolerance": worst}
+        out.append(entry)
+        assert max(worst.values()) <= 1.0, entry
+    return out
 
 
 def cost_model_parity(torch_device: str, moses_cfg) -> float:
@@ -1390,10 +1823,29 @@ def run_phases(torch, tmp: str) -> int:
             "cuda", cfg if layers is None else cfg.replace(num_layers=layers),
             cfg.num_layers, prompt, (mm, fa, lru))
 
+    # path 9: training the full RecurrentGemma-2B config through the
+    # launcher's objects and run_training (its probe launches each kernel)
+    t0 = time.perf_counter()
+    train = drive_train_path("cuda", (mm, fa, lru),
+                             str(Path(tmp) / "train_ckpt"))
+    train["probe_check"] = serve_probe_check(get_config(TRAIN_ARCH), "cuda")
+    train["seconds"] = time.perf_counter() - t0
+    emit("train_path", **train)
+    assert min(train["launches"].values()) >= 1, train["launches"]
+    emit("train_restart", **train_restart("cuda", tmp))
+    t0 = time.perf_counter()
+    emit("zoo_train_check", cases=zoo_train_check("cuda"),
+         tolerance="|err| <= 1e-4 * max|cpu| + 1e-4 * |cpu| (float32 "
+                   "activations, TF32 off); updates where the CPU's "
+                   "gradient is above it",
+         seconds=time.perf_counter() - t0)
+
     # one entry per ported kernel. matmul's times are sums over both tuning
     # paths' GEMMs (one launch each); the other two are their one task's.
     # Launches by path: the two tuning paths, then each serve path's probe
-    serve_paths = {"serve": serve, **{f"serve:{a}": z for a, z in zoo.items()}}
+    # and the training path's
+    serve_paths = {"serve": serve, **{f"serve:{a}": z for a, z in zoo.items()},
+                   "train": train}
 
     def by_path(name: str) -> dict:
         return {"resnet18": launches[name],

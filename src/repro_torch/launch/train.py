@@ -1,32 +1,48 @@
-"""Training launcher: the Moses autotune step (port of `repro.launch.train`).
+"""Training launcher (port of `repro.launch.train`).
 
     PYTHONPATH=src python -m repro_torch.launch.train \
-        --arch recurrentgemma-2b --autotune tpu_v5e [--dry-run] \
+        --arch recurrentgemma-2b --steps 200 --batch 8 --seq 128 [--smoke] \
+        [--autotune tpu_v5e [--dry-run]] [--checkpoint-dir DIR] \
         [--torch-device cpu]
 
---autotune runs Moses cost-model adaptation for the target device and
+Trains the architecture with AdamW (cosine schedule, warmup steps // 20,
+weight decay 0.01) on the synthetic data pipeline through the
+fault-tolerant loop (`train.train_loop.run_training`), restoring from the
+latest checkpoint in --checkpoint-dir, and prints the final loss. --smoke
+uses the reduced same-family config (CPU-runnable); the model runs on
+--torch-device (default cuda, which raises without a card).
+
+--autotune first runs Moses cost-model adaptation for the target device and
 persists the tuned kernel configs of the architecture's tasks (`arch_tasks`)
 to the port's registry (`REPRO_TORCH_TUNING_REGISTRY`, default
 `tuned_configs_torch.json`). --source names the transfer source device.
---dry-run tunes two tasks on a tiny budget and exits before training. The
-cost model runs on --torch-device (default cuda, which raises without a
-card).
+--dry-run tunes two tasks on a tiny budget and exits before training.
 
 Not ported yet, and raising NotImplementedError: --source auto (the transfer
-hub), --scheduler gradient (the tuning scheduler), --obs (telemetry) and the
-training that follows the autotune step (the LM zoo).
+hub), --scheduler gradient (the tuning scheduler), --obs (telemetry), and
+the flags that need more than one card (ROADMAP Queue 1 item 12):
+--production-mesh, --multi-pod, --model-parallel > 1, --opt epmoe.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
+import tempfile
 import time
-from typing import List, Optional
+from typing import TYPE_CHECKING, Dict, Iterator, List, Optional
+
+import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.moses import DEFAULT as MOSES_CFG
 from repro_torch.core.placement import TorchDevice
+
+if TYPE_CHECKING:
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import LoopConfig
 
 log = logging.getLogger(__name__)
 
@@ -99,11 +115,18 @@ def maybe_autotune(device: str, cfg, source: Optional[str] = None,
                        tune_s)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--checkpoint-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--autotune", default=None,
                     help="target device for Moses kernel tuning")
     ap.add_argument("--source", default=None,
@@ -119,10 +142,70 @@ def main(argv=None):
                          "before training")
     ap.add_argument("--obs", default=None, metavar="DIR",
                     help="campaign telemetry (not ported yet)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="needs more than one card (not ported yet)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="needs more than one card (not ported yet)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="values above 1 need more than one card (not "
+                         "ported yet)")
+    ap.add_argument("--opt", default="act",
+                    help="perf hints: act | none (on one card, pinning the "
+                         "activation shardings changes nothing, so both "
+                         "train the same); epmoe (expert parallelism) needs "
+                         "more than one card and is not ported yet")
     ap.add_argument("--seed", type=int, default=0,
-                    help="training seed (training is not ported yet)")
+                    help="seed of the params and of the data")
     ap.add_argument("--torch-device", default="cuda",
-                    help="where the cost model runs: cuda (default) or cpu")
+                    help="where the cost model and the model run: cuda "
+                         "(default) or cpu")
+    return ap
+
+
+@dataclasses.dataclass
+class Training:
+    """What the launcher trains with, built from its flags."""
+    model: "Model"
+    opt: "AdamW"
+    data: Iterator[Dict[str, np.ndarray]]
+    loop: "LoopConfig"
+
+
+def build_training(args: argparse.Namespace) -> Training:
+    """The reference launcher's model, AdamW (cosine schedule with warmup
+    max(steps // 20, 1), weight decay 0.01, the config's moment dtype, a
+    float32 master copy for bf16 params), data iterator and LoopConfig.
+    Raises NotImplementedError for the flags that need more than one
+    card."""
+    from repro_torch.models import build_model
+    from repro_torch.train.data import DataConfig, data_iterator
+    from repro_torch.train.optimizer import AdamW, AdamWConfig, cosine_schedule
+    from repro_torch.train.train_loop import LoopConfig
+
+    multi = [flag for flag, on in (
+        ("--production-mesh", args.production_mesh),
+        ("--multi-pod", args.multi_pod),
+        (f"--model-parallel {args.model_parallel}", args.model_parallel > 1),
+        ("--opt epmoe", "epmoe" in (args.opt or "").split(","))) if on]
+    if multi:
+        raise NotImplementedError(
+            f"{', '.join(multi)} needs more than one card: the distribution "
+            f"layer is not ported yet (ROADMAP Queue 1 item 12)")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    opt = AdamW(AdamWConfig(
+        lr=cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps),
+        weight_decay=0.01, moment_dtype=cfg.moment_dtype,
+        master_fp32=(cfg.param_dtype == "bfloat16")))
+    data = data_iterator(cfg, DataConfig(batch_size=args.batch,
+                                         seq_len=args.seq, seed=args.seed))
+    loop = LoopConfig(total_steps=args.steps,
+                      checkpoint_every=args.checkpoint_every,
+                      checkpoint_dir=args.checkpoint_dir)
+    return Training(build_model(cfg), opt, data, loop)
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -130,6 +213,7 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.dry_run and not args.autotune:
         ap.error("--dry-run needs --autotune DEVICE")
+    run = None if args.dry_run else build_training(args)
     if args.autotune:
         maybe_autotune(args.autotune, cfg, source=args.source,
                        scheduler=args.scheduler, trials=args.autotune_trials,
@@ -138,9 +222,14 @@ def main(argv=None):
         if args.dry_run:
             log.info("dry-run: autotune path OK; skipping training")
             return
-    raise NotImplementedError(f"training {args.arch} (seed {args.seed}) "
-                              f"waits for the port of the LM zoo "
-                              f"(repro.models, repro.train)")
+    from repro_torch.train.train_loop import run_training
+    _, hist = run_training(run.model, run.opt, run.data, run.loop,
+                           seed=args.seed, torch_device=args.torch_device)
+    if not hist:
+        print(f"nothing to train: the checkpoint in {args.checkpoint_dir} "
+              f"is at step {args.steps} or later")
+        return
+    print(f"final loss: {hist[-1]['loss']:.4f} over {len(hist)} steps")
 
 
 if __name__ == "__main__":

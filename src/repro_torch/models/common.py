@@ -172,9 +172,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu`'s rounding points: the sigmoid rounded to x's dtype,
+    then the product (`F.silu` rounds once, which at bf16 moves the
+    gradients of the weights before it by a few percent)."""
+    return x * torch.sigmoid(x)
+
+
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "silu":
-        return F.silu
+        return silu
     if name == "gelu":
         return gelu
     raise ValueError(name)

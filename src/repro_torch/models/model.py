@@ -5,6 +5,7 @@ build_model(cfg) returns a Model with functions over a nested dict of
 tensors:
     init(seed, torch_device) -> params
     forward(params, batch) -> (logits, aux)
+    loss(params, batch) -> (total, {"ce", "zloss", "aux", "ppl_proxy"})
     prefill(params, batch) -> (state, last_logits)
     decode_step(params, state, tokens[B]) -> (state, logits[B, V])
     cast_params(params) -> params with each weight the model only reads at
@@ -12,8 +13,8 @@ tensors:
 
 Batch keys: tokens int32 [B,S]; the encoder-decoder (whisper) adds
 encoder_embeddings [B, enc_len, frontend_dim] (the stub frontend's frames),
-the VLM frontend_embeddings [B, N_img, frontend_dim]. The loss (training)
-waits (ROADMAP Queue 1 item 11).
+the VLM frontend_embeddings [B, N_img, frontend_dim]; `loss` also reads
+targets int32 [B,S] and an optional float loss_mask [B,S].
 """
 from __future__ import annotations
 
@@ -172,6 +173,27 @@ class Model:
         extras = self._extras(params, batch)
         x, aux = tfm.stack_forward(params, self.cfg, x, positions, extras)
         return self._logits(params, x), aux
+
+    def loss(self, params, batch):
+        """(total, metrics): the masked mean cross entropy of the float32
+        logits, plus 1e-4 * logz^2 (the z-loss) and the MoE blocks' aux
+        loss. The metrics are 0-d tensors of the same autograd graph:
+        detach them before keeping them past the backward pass."""
+        logits, aux = self.forward(params, batch)
+        targets = batch["targets"]
+        logits32 = logits.float()
+        logz = torch.logsumexp(logits32, dim=-1)
+        gold = logits32.gather(-1, targets[..., None].long())[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=logits.device)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = ((logz - gold) * mask).sum() / denom
+        zloss = 1e-4 * ((logz ** 2) * mask).sum() / denom
+        total = ce + zloss + aux
+        return total, {"ce": ce, "zloss": zloss, "aux": aux,
+                       "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
     # --------------------------------------------------------------- serving
     def prefill(self, params, batch, max_len: Optional[int] = None):

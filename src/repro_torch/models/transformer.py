@@ -16,6 +16,9 @@ Python loop walks the group index, and the per-group caches are stacked
 the same way. `kinds_override` gives a plain list of block kinds in place
 of the config's plan (the whisper encoder).
 
+`stack_forward` runs each prefix and suffix block, and each group, under
+`cfg.remat_policy` (torch.utils.checkpoint in place of jax.checkpoint).
+
 Blocks read `extras`, as the reference's do: `kv_src` (the cross-attention
 source), `chunk` (the mLSTM chunk, default `cfg.scan_chunk`) and `moe_impl`
 (default "scatter"). `stack_forward` returns the blocks' summed aux loss.
@@ -31,8 +34,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (ParamBuilder, apply_mlp, apply_norm,
-                                       init_mlp, init_norm, stack_params,
-                                       tree_map)
+                                       init_mlp, init_norm, stack_params)
 
 PyTree = Any
 
@@ -319,11 +321,6 @@ def _plan(cfg, kinds_override: Optional[List[str]]):
     return stack_plan(cfg)
 
 
-def _group(tree: PyTree, g: int) -> PyTree:
-    """Group g's slice of a tree stacked along axis 0 (views)."""
-    return tree_map(lambda t: t[g], tree)
-
-
 def init_stack(b: ParamBuilder, cfg,
                kinds_override: Optional[List[str]] = None):
     """Initializes {'prefix': {...}, 'groups': stacked, 'suffix': {...}}."""
@@ -358,26 +355,77 @@ def _prepend_layers(axes_tree):
     return ("layers",) + tuple(axes_tree)
 
 
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save the outputs of products without batch dims (2-D `mm`,
+    `addmm`), recompute everything else: jax's
+    `dots_with_no_batch_dims_saveable`, which also recomputes the batched
+    products (attention's einsums, the MoE experts' bmm)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """`fn` under the config's rematerialisation policy (the reference's
+    `_remat`): "none" as is; "full" saves only its inputs and recomputes
+    the rest in the backward pass; "dots" also saves the matmul outputs.
+    Memory changes, values do not: the recomputation repeats the same ops
+    on the same inputs."""
+    if cfg.remat_policy == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def _groups(tree: PyTree, n: int) -> List[PyTree]:
+    """The n groups' slices of a tree stacked along axis 0, through one
+    `unbind` per leaf: its backward stacks the n gradients once, where n
+    selects would each add a zero-filled gradient of the whole stack."""
+    if isinstance(tree, dict):
+        per_key = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in per_key.items()} for g in range(n)]
+    return list(tree.unbind(0))
+
+
 def stack_forward(params, cfg, x, positions, extras,
                   kinds_override: Optional[List[str]] = None):
     """Returns (x, aux): aux is the blocks' summed aux loss, a float32
-    scalar (0 without MoE blocks)."""
+    scalar (0 without MoE blocks). Each prefix and suffix block, and each
+    group of the repeated unit, runs under `cfg.remat_policy`."""
     prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
     sp = params["stack"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(p_blk, kind, x, aux):
-        x, a = block_forward(p_blk, cfg, kind, x, positions, extras)
-        return x, aux if a is None else aux + a
+    def one_block(kind):
+        def f(p_blk, x, aux):
+            x, a = block_forward(p_blk, cfg, kind, x, positions, extras)
+            return x, aux if a is None else aux + a
+        return _remat(f, cfg)
+
+    def group_body(gp, x, aux):
+        for pos, kind in enumerate(unit):
+            x, a = block_forward(gp[f"b{pos}"], cfg, kind, x, positions,
+                                 extras)
+            aux = aux if a is None else aux + a
+        return x, aux
 
     for i, kind in enumerate(prefix):
-        x, aux = run(sp["prefix"][f"l{i}"], kind, x, aux)
-    for g in range(n_groups):
-        gp = _group(sp["groups"], g)
-        for pos, kind in enumerate(unit):
-            x, aux = run(gp[f"b{pos}"], kind, x, aux)
+        x, aux = one_block(kind)(sp["prefix"][f"l{i}"], x, aux)
+    if n_groups:
+        body = _remat(group_body, cfg)
+        for gp in _groups(sp["groups"], n_groups):
+            x, aux = body(gp, x, aux)
     for i, kind in enumerate(suffix):
-        x, aux = run(sp["suffix"][f"l{i}"], kind, x, aux)
+        x, aux = one_block(kind)(sp["suffix"][f"l{i}"], x, aux)
     return x, aux
 
 
@@ -391,8 +439,7 @@ def stack_prefill(params, cfg, x, positions, cache_len, extras,
             sp["prefix"][f"l{i}"], cfg, kind, x, positions, cache_len, extras)
     if n_groups:
         per_group = []
-        for g in range(n_groups):
-            gp = _group(sp["groups"], g)
+        for gp in _groups(sp["groups"], n_groups):
             gcaches = {}
             for pos, kind in enumerate(unit):
                 x, gcaches[f"b{pos}"] = block_prefill(
@@ -416,8 +463,8 @@ def stack_decode(params, cfg, x_t, caches, cur_pos, extras,
             caches["prefix"][f"l{i}"], cur_pos, extras)
     if n_groups:
         per_group = []
-        for g in range(n_groups):
-            gp, gc = _group(sp["groups"], g), _group(caches["groups"], g)
+        for gp, gc in zip(_groups(sp["groups"], n_groups),
+                          _groups(caches["groups"], n_groups)):
             ngc = {}
             for pos, kind in enumerate(unit):
                 x_t, ngc[f"b{pos}"] = block_decode(

@@ -21,7 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamBuilder, apply_norm, gelu
+from repro_torch.models.common import ParamBuilder, apply_norm, gelu, silu
 from repro_torch.models.recurrent import (conv1d_causal, conv1d_decode,
                                           init_conv1d)
 
@@ -196,7 +196,7 @@ def _mlstm_qkvif(p, cfg, u):
     """u: [B, S, inner] (post-up-proj). Returns q,k,v [B,S,H,D], gates
     [B,S,H] and the activated conv branch."""
     nh = cfg.num_heads
-    c_act = F.silu(conv1d_causal(p["conv"], u))
+    c_act = silu(conv1d_causal(p["conv"], u))
     q, k, v, gates = _mlstm_proj(p, c_act, u)
     B, S, inner = u.shape
     D = inner // nh
@@ -209,7 +209,7 @@ def _mlstm_qkvif(p, cfg, u):
 def _mlstm_out(p, h, c_act, g):
     """(h + skip * conv branch) * silu(gate branch), projected down."""
     dt = g.dtype
-    y = (h + p["skip_scale"].to(dt) * c_act) * F.silu(g)
+    y = (h + p["skip_scale"].to(dt) * c_act) * silu(g)
     return torch.matmul(y, p["w_down"].to(dt))
 
 
@@ -240,7 +240,7 @@ def mlstm_block_decode(p, cfg, x_t, st):
     nh = cfg.num_heads
     u, g = _up(p, x_t[:, 0])
     c, conv_state = conv1d_decode(p["conv"], u, st["conv"])
-    c_act = F.silu(c)
+    c_act = silu(c)
     q, k, v, gates = _mlstm_proj(p, c_act, u)
     B, inner = u.shape
     D = inner // nh
@@ -335,7 +335,7 @@ def slstm_block_forward(p, cfg, x):
 
 
 def slstm_block_prefill(p, cfg, x):
-    xc = F.silu(conv1d_causal(p["conv"], x))
+    xc = silu(conv1d_causal(p["conv"], x))
     h, state = slstm_scan(p, cfg, xc, x)
     out = _slstm_ffn(p, cfg, h)
     cw = cfg.conv_width
@@ -348,7 +348,7 @@ def slstm_block_prefill(p, cfg, x):
 def slstm_block_decode(p, cfg, x_t, st):
     xt = x_t[:, 0]
     xc_t, conv_state = conv1d_decode(p["conv"], xt, st["conv"])
-    xc_t = F.silu(xc_t)
+    xc_t = silu(xc_t)
     h, state = slstm_scan(p, cfg, xc_t[:, None], xt[:, None],
                           (st["c"], st["n"], st["h"], st["m"]))
     out = _slstm_ffn(p, cfg, h)

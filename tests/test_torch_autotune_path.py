@@ -105,11 +105,6 @@ def test_unported_options_raise(kw, waits_for):
                              torch_device="cpu", **kw)
 
 
-def test_training_waits_for_the_lm_zoo():
-    with pytest.raises(NotImplementedError, match="LM zoo"):
-        train.main(["--arch", ARCH, "--smoke"])
-
-
 def test_autotune_defaults_to_the_card(registry_file, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
