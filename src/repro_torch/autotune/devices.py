@@ -21,14 +21,17 @@ extra parts (tpu_v5e_pro near-clone, bandwidth-starved tpu_lite, embedded
 tpu_edge2) so the transfer hub's fingerprint-based source selection
 (src/repro/hub/) has a meaningful neighborhood structure to discover.
 
-Copied from `repro.autotune.devices` without `FaultInjector`, which the
-measurement-farm port will bring.
+A verbatim copy of `repro.autotune.devices` (imports repointed), including
+`FaultInjector`, the measurement farm's picklable fault-injection harness.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+import multiprocessing as mp
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -242,6 +245,88 @@ def measure(wl: Workload, cfg: ProgramConfig, device: str,
     dev = DEVICES[device]
     t = execution_time(wl, cfg, dev, noisy=noisy, trial=trial)
     return wl.flops / t / 1e9
+
+
+class InjectedCrash(RuntimeError):
+    """A FaultInjector-simulated hard fault (the in-process stand-in for a
+    segfault when the measurement runs on the thread backend)."""
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    """Deterministic fault injection wrapped around `measure`.
+
+    The measurement-farm test harness: a drop-in ``measure_fn`` that makes
+    a seed-keyed subset of (workload, config, trial) identities hostile —
+    the failure modes real boards exhibit — while every healthy identity
+    returns exactly what the plain simulator would. Which fault (if any)
+    hits an identity is a pure function of ``(config_hash, trial, seed)``,
+    never of call order, thread, or process: a test can pre-compute the
+    fault map with `fault_for` in the parent, and a replay under spawn
+    workers injects the identical faults.
+
+    Fault kinds, drawn disjointly by cumulative probability:
+
+      crash  — worker death. In a farm worker (``kill_process=True`` and
+               actually inside a child process) the worker hard-exits,
+               simulating a segfault; otherwise raises `InjectedCrash`.
+      hang   — sleeps ``hang_s`` (longer than any test timeout) before
+               answering: the wedged-board case the watchdog must kill.
+      flaky  — raises OSError on the FIRST attempt per worker, succeeds on
+               retry: the transient the executor's backoff must absorb.
+      slow   — sleeps ``slow_s`` then answers correctly: degraded but
+               healthy (must NOT be quarantined by a generous timeout).
+
+    Instances are picklable (the process backend ships them to spawn
+    workers); `_flaky_seen` is per-process state, which is exactly right —
+    a respawned worker retries afresh, like a power-cycled board.
+    """
+
+    crash: float = 0.0
+    hang: float = 0.0
+    flaky: float = 0.0
+    slow: float = 0.0
+    seed: int = 0
+    hang_s: float = 60.0
+    slow_s: float = 0.25
+    kill_process: bool = False
+    _flaky_seen: set = dataclasses.field(default_factory=set, repr=False)
+
+    def fault_for(self, wl: Workload, cfg: ProgramConfig,
+                  trial: int = 0) -> Optional[str]:
+        """The fault this identity draws: 'crash'|'hang'|'flaky'|'slow'|None.
+        Deterministic and process-independent (md5-backed config_hash)."""
+        h = (config_hash(wl, cfg) ^ (trial * 2654435761)
+             ^ (self.seed * 40503)) % (2 ** 31)
+        u = float(np.random.RandomState(h).rand())
+        for kind, p in (("crash", self.crash), ("hang", self.hang),
+                        ("flaky", self.flaky), ("slow", self.slow)):
+            if u < p:
+                return kind
+            u -= p
+        return None
+
+    def __call__(self, wl: Workload, cfg: ProgramConfig, device: str,
+                 trial: int = 0) -> float:
+        kind = self.fault_for(wl, cfg, trial)
+        if kind == "crash":
+            if self.kill_process and mp.parent_process() is not None:
+                # in a farm worker: die the way a segfault would — no
+                # exception, no cleanup, no result message
+                os._exit(139)
+            raise InjectedCrash(
+                f"injected crash for {wl.key()} trial {trial}")
+        if kind == "hang":
+            time.sleep(self.hang_s)
+        elif kind == "flaky":
+            key = (config_hash(wl, cfg), trial)
+            if key not in self._flaky_seen:
+                self._flaky_seen.add(key)
+                raise OSError(
+                    f"injected transient fault for {wl.key()} trial {trial}")
+        elif kind == "slow":
+            time.sleep(self.slow_s)
+        return measure(wl, cfg, device, trial=trial)
 
 
 def measurement_seconds(wl: Workload, cfg: ProgramConfig, device: str,

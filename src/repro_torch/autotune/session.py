@@ -1,7 +1,7 @@
 """TuneSession: orchestrates multiple (device, strategy) tuning jobs
-(PyTorch port of `repro.autotune.session`). `run_many`, `refresh_params`,
-the hub record `store` and `isolate_rng=False` wait for the ports of the
-scheduler, continual learning and the hub.
+(PyTorch port of `repro.autotune.session`). `refresh_params`, the hub
+record `store` and `isolate_rng=False` wait for the ports of continual
+learning and the hub.
 
 Every consumer of the tuner — the paper-figure benchmarks, the examples, the
 kernel-registry autotune path — needs the same setup: a pretrained cost
@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.autotune.registry import Registry
 from repro_torch.autotune.space import Workload
@@ -138,6 +138,83 @@ class TuneSession:
         if self.registry is not None:
             self.registry.ingest(result)
         return result
+
+    def run_many(self, jobs: Union[Dict[str, Sequence[Workload]],
+                                   Sequence[Tuple[str, Sequence[Workload]]]],
+                 strategy: StrategySpec = "moses",
+                 scheduler: str = "gradient",
+                 trials_per_task: Optional[int] = None,
+                 budget_seconds: Optional[float] = None,
+                 total_trials: Optional[int] = None,
+                 sched=None, executor=None, speculative: bool = False,
+                 salt: str = "", return_campaign: bool = False,
+                 **campaign_kwargs):
+        """Tune several (device, task-list) jobs as ONE campaign.
+
+        `scheduler="serial"` reproduces the legacy behavior — one `run()`
+        per device in job order, each task getting the full
+        `trials_per_task`. `scheduler="gradient"` hands the whole job set to
+        `repro_torch.sched.run_campaign`: measurement rounds are allocated
+        by marginal gain per simulated second under a global budget
+        (`total_trials` defaults to the serial spend; `budget_seconds`
+        optionally caps simulated device-seconds), measurements run through
+        the async executor, and `speculative=True` screens candidates with
+        the draft-then-verify scorer. The campaign's cost model runs on the
+        session's `torch_device`.
+
+        Returns the per-device `TuneResult` list (job order); with
+        `return_campaign=True` returns the full `CampaignResult` (trace,
+        budget accounting, spec stats) instead. Either way results land in
+        `self.results` and the registry exactly like `run()`.
+        """
+        job_list = (list(jobs.items()) if isinstance(jobs, dict)
+                    else [(d, list(ts)) for d, ts in jobs])
+        if scheduler == "serial":
+            # fail loudly on campaign-only knobs instead of silently
+            # ignoring them — an A/B caller passing identical kwargs to
+            # both modes must not get an uncapped, unscreened serial run
+            dropped = {"budget_seconds": budget_seconds,
+                       "total_trials": total_trials, "sched": sched,
+                       "executor": executor,
+                       "speculative": speculative or None,
+                       "return_campaign": return_campaign or None,
+                       **campaign_kwargs}
+            dropped = {k: v for k, v in dropped.items() if v is not None}
+            if dropped:
+                raise ValueError(
+                    f"run_many(scheduler='serial') does not support "
+                    f"{sorted(dropped)}; use scheduler='gradient'")
+            return [self.run(tasks, device, strategy,
+                             trials_per_task=trials_per_task, salt=salt)
+                    for device, tasks in job_list]
+        if scheduler != "gradient":
+            raise ValueError(f"unknown scheduler {scheduler!r}; "
+                             "expected 'serial' or 'gradient'")
+        # lazy: the scheduler imports this module for derive_job_seed
+        from repro_torch.sched import run_campaign
+        trials = (trials_per_task if trials_per_task is not None
+                  else self.trials_per_task
+                  if self.trials_per_task is not None
+                  else self.moses_cfg.small_trials)
+        # per-task seeds ride the session's RNG-isolation policy: the salt
+        # carries the workload key so each task owns an independent stream
+        # (order-independent, like run()'s per-job derivation)
+        campaign = run_campaign(
+            job_list, self.moses_cfg, strategy=strategy,
+            cost_model=self.resolved_cost_model(),
+            pretrained_params=self.pretrained_params,
+            source_pool=self.source_pool, seed=self.seed,
+            trials_per_task=trials, budget_seconds=budget_seconds,
+            total_trials=total_trials, sched=sched, executor=executor,
+            speculative=speculative,
+            seed_fn=lambda dev, key: self.job_seed(
+                dev, strategy, salt=f"{key}|{salt}" if salt else key),
+            torch_device=self.torch_device, **campaign_kwargs)
+        for result in campaign.results:
+            self.results.append(result)
+            if self.registry is not None:
+                self.registry.ingest(result)
+        return campaign if return_campaign else campaign.results
 
     def run_matrix(self, task_sets: Dict[str, Sequence[Workload]],
                    devices: Dict[str, str],

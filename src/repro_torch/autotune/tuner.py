@@ -24,7 +24,9 @@ by default); the search and the simulated measurement run on the host with
 the reference's numpy RNG streams. Use `autotune.session.TuneSession` to run
 several (device, strategy) jobs over shared pretrained params.
 
-The reference's `calibration=` observer waits for the port of `repro.obs`.
+The reference's `calibration=` observer waits for its caller, the hub
+(ROADMAP Queue 1 item 9); campaigns observe calibration in
+`sched.engine.TaskTuner`.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch recurrentgemma-2b --steps 200 --batch 8 --seq 128 [--smoke] \
-        [--autotune tpu_v5e [--dry-run]] [--checkpoint-dir DIR] \
-        [--torch-device cpu]
+        [--autotune tpu_v5e [--scheduler gradient] [--obs DIR] [--dry-run]] \
+        [--checkpoint-dir DIR] [--torch-device cpu]
 
 Trains the architecture with AdamW (cosine schedule, warmup steps // 20,
 weight decay 0.01) on the synthetic data pipeline through the
@@ -16,11 +16,14 @@ uses the reduced same-family config (CPU-runnable); the model runs on
 persists the tuned kernel configs of the architecture's tasks (`arch_tasks`)
 to the port's registry (`REPRO_TORCH_TUNING_REGISTRY`, default
 `tuned_configs_torch.json`). --source names the transfer source device.
+--scheduler gradient replaces the serial fixed-budget tuner with one
+scheduled campaign (`repro_torch.sched`: marginal-gain budget allocation,
+async measurement, draft-then-verify scoring), and --obs DIR writes that
+campaign's telemetry (`events.jsonl`, `campaign.trace.json`) to DIR.
 --dry-run tunes two tasks on a tiny budget and exits before training.
 
 Not ported yet, and raising NotImplementedError: --source auto (the transfer
-hub), --scheduler gradient (the tuning scheduler), --obs (telemetry), and
-the flags that need more than one card (ROADMAP Queue 1 item 12):
+hub), and the flags that need more than one card (ROADMAP Queue 1 item 12):
 --production-mesh, --multi-pod, --model-parallel > 1, --opt epmoe.
 """
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.core.placement import TorchDevice
 
 if TYPE_CHECKING:
     from repro_torch.models.model import Model
+    from repro_torch.sched.scheduler import CampaignResult
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_loop import LoopConfig
 
@@ -50,12 +54,15 @@ log = logging.getLogger(__name__)
 @dataclasses.dataclass
 class AutotuneRun:
     """What one autotune step did: the tuning result, the registry it was
-    saved to, and the seconds of pre-training and of tuning."""
+    saved to, the seconds of pre-training and of tuning, and, under
+    `scheduler="gradient"`, the whole `CampaignResult` (None on the serial
+    path)."""
     result: object
     registry: object
     pretrain_losses: List[float]
     pretrain_seconds: float
     tune_seconds: float
+    campaign: Optional["CampaignResult"] = None
 
 
 def maybe_autotune(device: str, cfg, source: Optional[str] = None,
@@ -64,19 +71,20 @@ def maybe_autotune(device: str, cfg, source: Optional[str] = None,
                    torch_device: TorchDevice = "cuda") -> AutotuneRun:
     """Pre-train the cost model on `source` (default: the Moses source
     device), tune `arch_tasks(cfg)` for `device` under `moses` and save the
-    winners to the registry."""
+    winners to the registry. `scheduler="gradient"` tunes the tasks as one
+    scheduled campaign (`TuneSession.run_many`, draft-then-verify scoring);
+    `obs` is a directory for that campaign's telemetry."""
     if source == "auto":
         raise NotImplementedError("--source auto routes through the transfer "
                                   "hub, which waits for the port of "
                                   "repro.hub")
-    if scheduler != "serial":
-        raise NotImplementedError(f"--scheduler {scheduler} waits for the "
-                                  f"port of repro.sched")
-    if obs:
-        raise NotImplementedError("--obs waits for the port of repro.obs")
+    if scheduler not in ("serial", "gradient"):
+        raise ValueError(f"unknown scheduler {scheduler!r}; expected "
+                         "'serial' or 'gradient'")
     from repro_torch.autotune.dataset import (generate_records,
                                               training_task_pool)
     from repro_torch.autotune.registry import Registry
+    from repro_torch.autotune.session import TuneSession
     from repro_torch.autotune.tasks import arch_tasks
     from repro_torch.autotune.tuner import tune
     from repro_torch.core.cost_model import resolve_cost_model
@@ -102,17 +110,38 @@ def maybe_autotune(device: str, cfg, source: Optional[str] = None,
     params, losses = model.train(params, src, epochs=2 if dry_run else 10)
     pretrain_s = time.perf_counter() - t0
     reg = Registry()
+    campaign = None
     t0 = time.perf_counter()
-    result = tune(tasks, device, "moses", moses_cfg, trials_per_task=trials,
-                  pretrained_params=params, source_pool=src, cost_model=model,
-                  torch_device=torch_device)
+    if scheduler == "gradient":
+        session = TuneSession(moses_cfg=moses_cfg, pretrained_params=params,
+                              source_pool=src, registry=reg,
+                              trials_per_task=trials, cost_model=model,
+                              torch_device=torch_device)
+        campaign = session.run_many([(device, tasks)], strategy="moses",
+                                    scheduler="gradient", speculative=True,
+                                    return_campaign=True, obs=obs)
+        result = campaign.results[0]
+        log.info("campaign done: measurements=%d simulated_s=%.1f "
+                 "simulated_wall_s=%.1f grants=%d draft_acceptance=%.2f "
+                 "full_model_reduction=%.1f",
+                 campaign.total_measurements, campaign.spent_seconds,
+                 campaign.wall_seconds, len(campaign.trace),
+                 campaign.spec_stats.acceptance,
+                 campaign.spec_stats.full_model_reduction)
+        if obs:
+            log.info("campaign telemetry written: obs_dir=%s", obs)
+    else:
+        result = tune(tasks, device, "moses", moses_cfg,
+                      trials_per_task=trials, pretrained_params=params,
+                      source_pool=src, cost_model=model,
+                      torch_device=torch_device)
+        reg.ingest(result)
     tune_s = time.perf_counter() - t0
-    reg.ingest(result)
     reg.save()
     log.info("autotune done: tuned_tasks=%d registry=%s", len(result.tasks),
              reg.path)
     return AutotuneRun(result, reg, [float(x) for x in losses], pretrain_s,
-                       tune_s)
+                       tune_s, campaign)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -134,14 +163,19 @@ def parser() -> argparse.ArgumentParser:
                          "the transfer hub, is not ported yet)")
     ap.add_argument("--scheduler", default="serial",
                     choices=("serial", "gradient"),
-                    help="--autotune engine; only 'serial' is ported")
+                    help="--autotune engine: 'serial' tunes each task with "
+                         "a fixed budget; 'gradient' runs one scheduled "
+                         "campaign (marginal-gain budget allocation + async "
+                         "measurement + draft-then-verify scoring)")
     ap.add_argument("--autotune-trials", type=int, default=48,
                     help="per-task trial budget for --autotune")
     ap.add_argument("--dry-run", action="store_true",
                     help="run the --autotune path on a tiny budget and exit "
                          "before training")
     ap.add_argument("--obs", default=None, metavar="DIR",
-                    help="campaign telemetry (not ported yet)")
+                    help="write campaign telemetry (events.jsonl + Chrome "
+                         "trace + metrics snapshot) to DIR; applies to the "
+                         "--scheduler gradient autotune path")
     ap.add_argument("--production-mesh", action="store_true",
                     help="needs more than one card (not ported yet)")
     ap.add_argument("--multi-pod", action="store_true",

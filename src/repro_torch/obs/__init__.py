@@ -1,14 +1,41 @@
-"""Telemetry (port of `repro.obs`): for now only the metrics registry.
+"""Unified telemetry (port of `repro.obs`): metrics, trace spans, flight
+recorder, structured logger and search calibration.
 
-`repro_torch.obs.metrics` is a verbatim copy of the jax-free
-`repro/obs/metrics.py`: counters, gauges and histograms on one fixed
-log-spaced bucket grid, and `metrics.current()`, the process registry (or
-the innermost one pushed). The serving engine and the kernel probes record
-into it. Trace spans, the flight recorder, time series and SLOs wait.
+Torch-free, as the reference is jax-free: spawn farm workers import from
+here. Each module is a copy of the reference's with its imports repointed:
+
+  * `repro_torch.obs.metrics` — counters, gauges and histograms on one fixed
+    log-spaced bucket grid; `metrics.current()` is the process registry (or
+    the innermost one pushed, e.g. a running campaign's).
+  * `repro_torch.obs.trace` — `span("tune.round", ...)` context managers
+    emitting Chrome-trace/Perfetto events, `(trace_id, span_id)` contexts
+    that ride farm pipe messages, and `validate_events`.
+  * `repro_torch.obs.recorder` — `FlightRecorder`: a campaign's
+    `events.jsonl` + `campaign.trace.json`, and `summarize_trace`'s
+    wall-time attribution.
+  * `repro_torch.obs.calibration` — `CalibrationTracker`: predicted-vs-
+    measured residuals, rank accuracy, top-k regret and draft acceptance.
+  * `get_logger` (obs.logging): the `[name] msg key=value` status logger
+    whose warning+ lines a running recorder captures.
+
+The serving monitors of the reference (`timeseries`, `slo`) wait.
 """
-from repro_torch.obs import metrics
-from repro_torch.obs.metrics import (MetricsRegistry, current, pop_registry,
+from repro_torch.obs import metrics, trace
+from repro_torch.obs.calibration import CalibrationTracker
+from repro_torch.obs.logging import get_logger
+from repro_torch.obs.metrics import (Counter, Gauge, Histogram, LatencyWindow,
+                                     MetricsRegistry, current, pop_registry,
                                      push_registry)
+from repro_torch.obs.recorder import FlightRecorder, summarize_trace
+from repro_torch.obs.trace import (SpanContext, Tracer, current_context,
+                                   remote_event, span, to_chrome_trace,
+                                   validate_events)
 
-__all__ = ["MetricsRegistry", "current", "metrics", "pop_registry",
-           "push_registry"]
+__all__ = [
+    "CalibrationTracker",
+    "Counter", "Gauge", "Histogram", "LatencyWindow", "MetricsRegistry",
+    "current", "pop_registry", "push_registry",
+    "FlightRecorder", "summarize_trace", "SpanContext", "Tracer",
+    "current_context", "remote_event", "span", "to_chrome_trace",
+    "validate_events", "get_logger", "metrics", "trace",
+]

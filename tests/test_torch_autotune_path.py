@@ -1,6 +1,8 @@
 """The slice as a whole: the training launcher's autotune step on
 RecurrentGemma-2B in the port, its registry read by the reference, and the
-tuned kernels of both packages at the model's real attention shape.
+tuned kernels of both packages at the model's real attention shape. The
+scheduled path (`--scheduler gradient --obs DIR`) fills the registry and
+writes the campaign's telemetry.
 
   * `maybe_autotune(dry_run=True)` runs to the end into a temporary
     registry; the JAX `Registry` reads it, and both packages'
@@ -10,6 +12,9 @@ tuned kernels of both packages at the model's real attention shape.
     model's `self_attn` and `rg_lru_scan` tasks both packages measure the
     same configs in the same order and pick the same winners.
 """
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +45,16 @@ from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread per test: the suite runs several workers on the
+    machine's cores (see tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -96,13 +111,46 @@ def test_cli_dry_run(registry_file):
 
 
 @pytest.mark.parametrize("kw,waits_for", [
-    ({"source": "auto"}, "repro.hub"),
-    ({"scheduler": "gradient"}, "repro.sched"),
-    ({"obs": "telemetry"}, "repro.obs")])
+    ({"source": "auto"}, "repro.hub")])
 def test_unported_options_raise(kw, waits_for):
     with pytest.raises(NotImplementedError, match=waits_for):
         train.maybe_autotune("tpu_v5e", get_config(ARCH), dry_run=True,
                              torch_device="cpu", **kw)
+
+
+def test_gradient_dry_run_fills_registry_and_writes_telemetry(
+        registry_file, tmp_path):
+    obs = str(tmp_path / "obs")
+    run = train.maybe_autotune("tpu_v5e", get_config(ARCH),
+                               scheduler="gradient", dry_run=True, obs=obs,
+                               torch_device="cpu")
+    campaign = run.campaign
+    assert campaign is not None and campaign.results[0] is run.result
+    assert [t.workload.name for t in run.result.tasks] == ["qkv_proj",
+                                                           "self_attn"]
+    for t in run.result.tasks:
+        assert config_valid(t.workload, t.best_config)
+    assert campaign.spec_stats.batches > 0
+    assert campaign.total_measurements <= 16 * 2 + 2
+    reg = t_registry.Registry(registry_file)
+    assert len(reg._data["tpu_v5e"]) == 2
+    assert sorted(os.listdir(obs)) == ["campaign.trace.json", "events.jsonl"]
+    summary = campaign.obs_summary
+    assert summary["problems"] == [] and summary["root"] == "campaign"
+    assert summary["attributed_pct"] >= 95.0
+    assert {"search", "measure", "update"} <= set(summary["categories_s"])
+    # the serial path keeps no campaign
+    assert train.maybe_autotune("tpu_v5e", get_config(ARCH), dry_run=True,
+                                torch_device="cpu").campaign is None
+
+
+def test_cli_gradient_dry_run(registry_file, tmp_path):
+    train.main(["--arch", ARCH, "--smoke", "--autotune", "tpu_v5e",
+                "--scheduler", "gradient", "--dry-run", "--autotune-trials",
+                "8", "--torch-device", "cpu", "--obs",
+                str(tmp_path / "obs")])
+    assert len(t_registry.Registry(registry_file)._data["tpu_v5e"]) == 2
+    assert os.path.exists(tmp_path / "obs" / "events.jsonl")
 
 
 def test_autotune_defaults_to_the_card(registry_file, monkeypatch):
@@ -145,3 +193,40 @@ def test_tenset_pretrain_picks_the_same_configs():
             [(c.knobs, t, i) for c, t, i in tt.measured]
         assert jt.best_config.knobs == tt.best_config.knobs
     assert jres.total_search_seconds == tres.total_search_seconds
+
+
+def test_chip_smoke_sched_path_rehearses_on_cpu(registry_file, tmp_path,
+                                                monkeypatch):
+    """chip_smoke.py's `sched_path` at the smoke config and the dry-run
+    budget on the CPU: the serial path's registry moves aside, the
+    campaign's winners launch from the campaign's registry (the plain
+    versions here), and the line's numbers and the recorder's artifacts are
+    there."""
+    import importlib.util
+    from pathlib import Path
+
+    import repro_torch.configs as t_configs
+    from repro_torch.configs import get_smoke_config
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(t_configs, "get_config", get_smoke_config)
+    serial = train.maybe_autotune("tpu_v5e", get_config(ARCH), dry_run=True,
+                                  torch_device="cpu")
+    obs = str(tmp_path / "obs")
+    cfg, run, calls = smoke.drive_sched_path("cpu", ARCH, trials=8,
+                                             obs_dir=obs, dry_run=True)
+    assert os.path.exists(os.path.join(os.path.dirname(registry_file),
+                                       "serial_tuned_configs_torch.json"))
+    assert [wl.name for wl, _, _ in calls] == ["qkv_proj", "self_attn"]
+    for wl, args, out in calls:
+        assert torch.isfinite(out.float()).all(), wl.name
+    line = smoke.sched_summary(run, serial, obs)
+    assert line["grants"] == len(run.campaign.trace) > 0
+    assert line["serial_measurements"] == serial.result.total_measurements
+    assert {"round.search", "round.measure", "round.update"} <= set(
+        line["obs_spans"])
+    assert line["obs_attributed_pct"] >= 95.0
+    json.dumps(line)
