@@ -7,11 +7,11 @@ Builds the port's CUDA kernels (matmul and flash attention in two variants
 each, wgmma and simt; RG-LRU scan) from the five sources in this checkout,
 one nvcc each, all started together; holds each kernel against its plain
 PyTorch version on the card over its knob corners, each matmul and
-attention case naming the variant it ran; then drives ten paths through
-the port's entry points at full width (nine serving or tuning, one
+attention case naming the variant it ran; then drives eleven paths through
+the port's entry points at full width (ten serving or tuning, one
 training), each with the launch counts set to 0 just before it and read
-just after, and asserts that every GEMM of the
-first three paths, and their attention, ran the wgmma variant. The first
+just after, and asserts that every GEMM of the three tuning paths below and
+of the hub path, and their attention, ran the wgmma variant. The first
 three:
 
   ResNet-18 (the Moses main path)
@@ -97,6 +97,31 @@ on the card (fail at step 15, resume from the step-10 checkpoint, the
 final loss within rel 1e-5 of an uninterrupted run), and
 `zoo_train_check` holds each smoke config's loss, gradients and one
 optimizer update on the card to the port on the CPU at float32.
+
+The eleventh path (`hub_path`) tunes RecurrentGemma-2B through the transfer
+hub for a device the store has never seen, tpu_v5e_pro: a temporary hub
+root is seeded with tpu_v5e and tpu_edge records over the model's 9 tasks
+(16 programs a task, as `launch.hub --bootstrap`), then
+`launch.train.maybe_autotune(..., source="auto", hub_root=ROOT)` with the
+launcher's defaults (cost model 164 -> 512 -> 512 -> 1, 48 trials a task,
+the tpu_v5p pool corpus at 16 programs a task, which it bootstraps itself)
+fingerprints the target, ranks the sources (tpu_v5e must be nearest),
+pre-trains on the mixed pool, tunes the 9 tasks under moses and writes the
+winners to an empty registry. A second call must queue nothing and measure
+nothing; every winner must be explainable (sources, calibration, the
+registry's knobs). `hub_refresh` then calls the lifecycle directly, twice:
+the initial version, then the anchored one (`anchor_weights`,
+`anchored_train` on the card, the held-out guard), printing the guard's
+accuracies, the epoch losses, the distance moved overall and within the
+anchor's mask, and the lineage. Each winner launches at its real shape on
+bf16 operands from the registry's tpu_v5e_pro entries (one `hub_task` line
+each: GEMMs and attention wgmma, the scan tma; the hub tunes 8 distinct
+workloads for the 9 tasks, since out_proj and rec_out_proj share one key,
+and both launch its winner). The `hub_path` line gives
+the bootstrap, fingerprint, pre-train, tune and refresh seconds, the new
+measurements, the peak memory and the launches by kernel and variant.
+`hub_smoke` runs `python -m repro_torch.launch.hub --smoke --refresh` as a
+subprocess on the card; it must exit 0.
 
 Kernel times come two ways: `ms`, CUDA events around calls launched back
 to back (where a kernel is faster than its wrapper's host work, that is the
@@ -608,12 +633,15 @@ def drive_lm_path(torch_device: str, arch: str, trials: int):
     cfg = get_config(arch)
     run = maybe_autotune("tpu_v5e", cfg, trials=trials,
                          torch_device=torch_device)
-    return cfg, run, launch_tuned(cfg, run, torch_device, seed=5)
+    return cfg, run, launch_tuned(cfg, run, torch_device, seed=5,
+                                  device="tpu_v5e")
 
 
-def launch_tuned(cfg, run, torch_device: str, seed: int) -> list:
-    """Launch each task of `run` once, with the config `run.registry` holds
-    for it, at the model's real shape on bf16 operands (see
+def launch_tuned(cfg, run, torch_device: str, seed: int, device: str,
+                 workloads=None) -> list:
+    """Launch each of `workloads` (default: the tasks of `run`) once, with
+    the config `run.registry` holds for it on the simulated target
+    `device`, at the model's real shape on bf16 operands (see
     `drive_lm_path`). Returns [(workload, inputs, tuned output)]."""
     import torch
 
@@ -626,13 +654,14 @@ def launch_tuned(cfg, run, torch_device: str, seed: int) -> list:
         return torch.randn(shape, generator=gen, device=torch_device).to(
             torch.bfloat16)
 
+    if workloads is None:
+        workloads = [t.workload for t in run.result.tasks]
     calls = []
-    for t in run.result.tasks:
-        wl = t.workload
+    for wl in workloads:
         if wl.kind == "matmul":
             M, N, K = wl.dims
             args = {"a": randn(M, K), "b": randn(K, N)}
-            out = ops.tuned_matmul(args["a"], args["b"], device="tpu_v5e")
+            out = ops.tuned_matmul(args["a"], args["b"], device=device)
         elif wl.kind == "attention":
             S, D = wl.dims
             H, G = cfg.num_heads, cfg.num_kv_heads
@@ -640,12 +669,12 @@ def launch_tuned(cfg, run, torch_device: str, seed: int) -> list:
                     "k": randn(G, S, D).repeat_interleave(H // G, 0),
                     "v": randn(G, S, D).repeat_interleave(H // G, 0),
                     "causal": True, "window": cfg.local_window}
-            out = ops.tuned_flash_attention(device="tpu_v5e", **args)
+            out = ops.tuned_flash_attention(device=device, **args)
         else:
             S, W = wl.dims
             a, x = scan_inputs(1, S, W, torch.bfloat16, gen, torch_device)
             args = {"a": a, "x": x}
-            out = ops.tuned_rg_lru(a, x, device="tpu_v5e")
+            out = ops.tuned_rg_lru(a, x, device=device)
         calls.append((wl, args, out))
     if torch_device != "cpu":
         torch.cuda.synchronize()
@@ -678,7 +707,141 @@ def drive_sched_path(torch_device: str, arch: str, trials: int, obs_dir: str,
     for t in run.result.tasks:
         assert run.registry.get("tpu_v5e", t.workload).knobs == \
             t.best_config.knobs, t.workload.name
-    return cfg, run, launch_tuned(cfg, run, torch_device, seed=6)
+    return cfg, run, launch_tuned(cfg, run, torch_device, seed=6,
+                                  device="tpu_v5e")
+
+
+HUB_TARGET = "tpu_v5e_pro"      # absent from the store until hub_path tunes it
+HUB_SEEDED = ("tpu_v5e", "tpu_edge")
+
+
+def drive_hub_path(torch_device: str, arch: str, hub_root: str,
+                   trials: int, dry_run: bool = False) -> tuple:
+    """The transfer hub on the same model, for a device it has never seen:
+    seed the store with `HUB_SEEDED` over the model's tasks (as `launch.hub
+    --bootstrap` does), then `maybe_autotune(HUB_TARGET, source="auto")`
+    bootstraps the tpu_v5p pool corpus itself, fingerprints the target,
+    ranks the sources, pre-trains on the mixed pool and tunes every task
+    (the launcher's defaults). A second call on the same root must serve
+    every task with no new measurement; every winner must be explainable,
+    with the registry's knobs. The registry starts empty (the scheduled
+    campaign's file moves aside). Returns (cfg, AutotuneRun, the second
+    AutotuneRun, the numbers of the `hub_path` line)."""
+    from repro_torch.autotune import registry as registry_mod
+    from repro_torch.autotune.tasks import arch_tasks
+    from repro_torch.configs import get_config
+    from repro_torch.hub import RecordStore, bootstrap_store
+    from repro_torch.launch.train import maybe_autotune
+
+    path = Path(registry_mod.Registry().path)
+    if path.exists():
+        path.rename(path.with_name("sched_" + path.name))
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    seeded = bootstrap_store(RecordStore(os.path.join(hub_root, "store")),
+                             HUB_SEEDED, arch_tasks(cfg),
+                             programs_per_task=16)
+    seed_s = time.perf_counter() - t0
+    assert seeded > 0, "the hub root was not empty"
+    run = maybe_autotune(HUB_TARGET, cfg, source="auto", hub_root=hub_root,
+                         trials=trials, dry_run=dry_run,
+                         torch_device=torch_device)
+    hub = run.hub.hub
+    sel = hub.selection(HUB_TARGET)
+    # the reference's own smoke: the near-class clone is the nearest source
+    assert sel is not None and sel.best_source == "tpu_v5e", sel.ranked
+    again = maybe_autotune(HUB_TARGET, cfg, source="auto", hub_root=hub_root,
+                           trials=trials, dry_run=dry_run,
+                           torch_device=torch_device)
+    assert again.result is None and again.hub.queued == 0, again.hub
+    assert again.hub.hub.stats.measurements == 0, again.hub.hub.stats
+    assert again.hub.bootstrap_records == 0
+    tasks = run.result.tasks
+    # the hub queues by workload key: out_proj and rec_out_proj share one
+    # (512 x 2560 x 2560), so the job tunes one task fewer than the model
+    # has, and the registry serves both from that one winner
+    model_tasks = arch_tasks(cfg)[:2] if dry_run else arch_tasks(cfg)
+    assert len(tasks) == len({wl.key() for wl in model_tasks}), tasks
+    for wl in model_tasks:
+        assert run.registry.lookup(HUB_TARGET, wl) is not None, wl.name
+    explained = 0
+    for t in tasks:
+        key = t.workload.key()
+        exp = hub.explain(HUB_TARGET, key)
+        assert exp is not None, key
+        prov = exp["provenance"]
+        assert prov.get("sources") and prov.get("calibration"), key
+        assert prov["knobs"] == run.registry.entry(HUB_TARGET, key)["knobs"]
+        assert prov["knobs"] == dict(t.best_config.knobs), key
+        explained += 1
+    return cfg, run, again, {
+        "target": HUB_TARGET, "seeded_devices": list(HUB_SEEDED),
+        "seed_records": seeded, "seed_seconds": seed_s,
+        "bootstrap_records": run.hub.bootstrap_records,
+        "bootstrap_seconds": run.hub.bootstrap_seconds,
+        "fingerprint_seconds": run.hub.fingerprint_seconds,
+        "pretrain_seconds": run.pretrain_seconds,
+        "tune_seconds": run.tune_seconds,
+        "flush_seconds": run.hub.flush_seconds,
+        "ranked": sel.ranked, "sources": sel.sources,
+        "params_device": sel.params_device, "model_tasks": len(model_tasks),
+        "tasks": len(tasks), "queued": run.hub.queued,
+        "new_measurements": run.result.total_measurements,
+        "second_queued": again.hub.queued,
+        "second_new_measurements": again.hub.hub.stats.measurements,
+        "explained": explained,
+        "store_devices": hub.store.devices(),
+        "store_records": {d: hub.store.count(d)
+                          for d in hub.store.devices()},
+    }
+
+
+def hub_smoke_cli(root: str, timeout_s: float = 600.0) -> dict:
+    """`python -m repro_torch.launch.hub --smoke --refresh --root ROOT`, the
+    reference's CI leg, as a subprocess on the card; it must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.hub", "--smoke",
+         "--refresh", "--root", root], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout_s)
+    assert proc.returncode == 0 and "[hub-smoke] OK" in proc.stdout, \
+        proc.stdout[-4000:] + proc.stderr[-4000:]
+    return {"returncode": proc.returncode,
+            "seconds": time.perf_counter() - t0,
+            "lines": [ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("[hub-smoke]")]}
+
+
+def hub_refresh(hub, device: str) -> dict:
+    """Two forced refreshes of `device`'s serving cost model, called on the
+    lifecycle directly so that any error fails the phase: the first trains
+    the initial version (there is none), the second the anchored one
+    (`anchor_weights` and `anchored_train` from the first, then the
+    held-out guard). An accepted version must be in the store's lineage and
+    may not regress the guard's accuracy beyond its tolerance."""
+    import math
+    lc = hub.lifecycle
+    out = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = lc.refresh(device, trigger="chip_smoke", force=True)
+        secs = time.perf_counter() - t0
+        lineage = hub.store.model_lineage(device)
+        if res.accepted:
+            assert res.version in [e["version"] for e in lineage], lineage
+            assert hub.store.latest_model_version(device) == res.version
+            if not (math.isnan(res.holdout_accuracy_old)
+                    or math.isnan(res.holdout_accuracy_new)):
+                assert res.holdout_accuracy_new >= \
+                    res.holdout_accuracy_old - lc.cfg.guard_eps, res
+        else:
+            # only the guard may refuse a forced refresh
+            assert "regress" in res.reason, res
+        out.append({"seconds": secs, **res.to_dict(),
+                    "lineage": [e["version"] for e in lineage]})
+    assert out[0]["trigger"] == "initial" and out[0]["accepted"], out[0]
+    return {"refreshes": out}
 
 
 def sched_summary(run, serial_run, obs_dir: str) -> dict:
@@ -1857,7 +2020,7 @@ def main() -> int:
 
 def run_phases(torch, tmp: str) -> int:
     from repro_torch.autotune.space import config_valid
-    from repro_torch.autotune.tasks import resnet18_tasks
+    from repro_torch.autotune.tasks import arch_tasks, resnet18_tasks
     from repro_torch.configs import get_config
     from repro_torch.configs.moses import MosesConfig
     from repro_torch.kernels import build
@@ -2079,6 +2242,56 @@ def run_phases(torch, tmp: str) -> int:
                    "gradient is above it",
          seconds=time.perf_counter() - t0)
 
+    # path 11: the transfer hub tunes the same model for a device it has
+    # never seen (launch.train --source auto), refreshes that device's cost
+    # model on the card and launches its winners; then launch.hub's own
+    # smoke leg runs as a subprocess
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hub_mem_start = torch.cuda.memory_allocated() / 1e9
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    t0 = time.perf_counter()
+    cfg, hub_run, _, hub_line = drive_hub_path(
+        "cuda", "recurrentgemma-2b", str(Path(tmp) / "hub"), trials=48)
+    t1 = time.perf_counter()
+    hub_line.update(hub_refresh(hub_run.hub.hub, HUB_TARGET))
+    hub_line["refresh_seconds"] = time.perf_counter() - t1
+    hub_calls = launch_tuned(cfg, hub_run, "cuda", seed=7, device=HUB_TARGET,
+                             workloads=arch_tasks(cfg))
+    hub_launches = {"matmul": mm.matmul.launches,
+                    "flash_attention": fa.flash_attention.launches,
+                    "rg_lru": lru.rg_lru.launches}
+    hub_mm = dict(mm.matmul.launches_by_variant)
+    hub_fa = dict(fa.flash_attention.launches_by_variant)
+    emit("hub_path", arch=cfg.name, launches=hub_launches,
+         matmul_launches_by_variant=hub_mm,
+         flash_attention_launches_by_variant=hub_fa,
+         seconds=time.perf_counter() - t0,
+         memory_allocated_at_start_gb=hub_mem_start,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **hub_line)
+    assert len(hub_calls) == 9, [wl.name for wl, _, _ in hub_calls]
+    assert hub_mm["wgmma"] >= 7 and hub_mm["simt"] == 0, hub_mm
+    assert hub_fa["wgmma"] >= 1 and hub_fa["simt"] == 0, hub_fa
+    assert hub_launches["rg_lru"] >= 1, hub_launches
+    hub_err = {"flash_attention": 0.0, "rg_lru": 0.0}
+    for wl, args, out in hub_calls:
+        knobs = hub_run.registry.get(HUB_TARGET, wl).as_dict()
+        line = lm_task_line(wl, args, out, knobs, (mm, fa, lru))
+        emit("hub_task", device=HUB_TARGET, **line)
+        if wl.kind == "matmul":
+            assert line["variant"] == "wgmma", line
+            worst = max(worst, line["max_abs_err"])
+        else:
+            if wl.kind == "attention":
+                assert line["variant"] == "wgmma", line
+            else:
+                assert line["route"] == "tma", line
+            hub_err["flash_attention" if wl.kind == "attention"
+                    else "rg_lru"] = line["max_abs_err"]
+    torch.cuda.synchronize()
+    emit("hub_smoke", **hub_smoke_cli(str(Path(tmp) / "hub_smoke")))
+
     # one entry per ported kernel. matmul's times are sums over the first
     # two tuning paths' GEMMs (one launch each); the other two are their one
     # task's in the second. Launches by path: the three tuning paths, then
@@ -2090,6 +2303,7 @@ def run_phases(torch, tmp: str) -> int:
         return {"resnet18": launches[name],
                 "recurrentgemma-2b": lm_launches[name],
                 "sched_path": sched_launches[name],
+                "hub_path": hub_launches[name],
                 **{p: z["launches"][name] for p, z in serve_paths.items()}}
 
     def by_variant(name: str, tuning: dict) -> dict:
@@ -2109,7 +2323,7 @@ def run_phases(torch, tmp: str) -> int:
         "launches": sum(paths.values()),
         "launches_by_variant": by_variant("matmul", {
             v: launches["by_variant"][v] + lm_by_variant[v] + sched_mm[v]
-            for v in ("wgmma", "simt")}),
+            + hub_mm[v] for v in ("wgmma", "simt")}),
         "launches_by_path": paths,
         "checked": True, "max_abs_err": worst,
         "ms": totals["ms"], "device_ms": totals["device_ms"],
@@ -2125,7 +2339,7 @@ def run_phases(torch, tmp: str) -> int:
                 "sources": {"wgmma": f"{csrc}/flash_attention_wgmma.cu",
                             "simt": f"{csrc}/flash_attention.cu"},
                 "launches_by_variant": by_variant("flash_attention", {
-                    v: fa_by_variant[v] + sched_fa[v]
+                    v: fa_by_variant[v] + sched_fa[v] + hub_fa[v]
                     for v in ("wgmma", "simt")})}),
             ("rg_lru", "rg_lru.cu",
              {"replaces": "src/repro/kernels/rg_lru.py:57"})):
@@ -2137,7 +2351,8 @@ def run_phases(torch, tmp: str) -> int:
             "launches": sum(paths.values()),
             "launches_by_path": paths,
             "checked": True,
-            "max_abs_err": max(line["max_abs_err"], sched_err[name]),
+            "max_abs_err": max(line["max_abs_err"], sched_err[name],
+                               hub_err[name]),
             "ms": line["ms"], "device_ms": line["device_ms"],
             "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],

@@ -48,10 +48,12 @@ def training_task_pool(seed: int = 0, include_archs: bool = True
 
 def generate_records(tasks: Sequence[Workload], device: str,
                      programs_per_task: int = 64, seed: int = 0,
-                     noisy: bool = True) -> Records:
+                     noisy: bool = True, store=None) -> Records:
     """Sample + measure a record pool on `device`. Records are numpy;
-    training moves them to the cost model's device batch by batch. (The
-    reference's hub `store=` waits for the port of the hub.)"""
+    training moves them to the cost model's device batch by batch. With
+    `store` set (a duck-typed `repro_torch.hub.store.RecordStore`), every
+    measurement is also appended to the persistent cross-device corpus
+    (caller flushes)."""
     rng = np.random.RandomState(seed)
     feats, raw, gids = [], [], []
     for gid, wl in enumerate(tasks):
@@ -65,6 +67,8 @@ def generate_records(tasks: Sequence[Workload], device: str,
             feats.append(extract_features(wl, cfg))
             raw.append(thr)
             gids.append(gid)
+            if store is not None:
+                store.put(device, wl, cfg, thr)
     x = np.stack(feats)
     raw = np.asarray(raw, np.float32)
     g = np.asarray(gids, np.int32)

@@ -1,7 +1,5 @@
 """TuneSession: orchestrates multiple (device, strategy) tuning jobs
-(PyTorch port of `repro.autotune.session`). `refresh_params`, the hub
-record `store` and `isolate_rng=False` wait for the ports of continual
-learning and the hub.
+(PyTorch port of `repro.autotune.session`).
 
 Every consumer of the tuner — the paper-figure benchmarks, the examples, the
 kernel-registry autotune path — needs the same setup: a pretrained cost
@@ -10,8 +8,8 @@ RNG seed per job, per-strategy knob overrides, and optional persistence of
 winners into the tuned-config `Registry`. TuneSession owns that boilerplate
 once so callers submit jobs instead of re-plumbing `tune(...)` arguments.
 
-RNG isolation: each job's seed is derived by hashing (session seed, device,
-strategy, salt), so
+RNG isolation: with `isolate_rng=True` (default) each job's seed is derived
+by hashing (session seed, device, strategy, salt), so
 
   * two jobs in one session never share an RNG stream (no hidden coupling
     through np.random state or seed arithmetic collisions), and
@@ -23,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.autotune.registry import Registry
 from repro_torch.autotune.space import Workload
@@ -59,11 +57,16 @@ class TuneSession:
         observe each other's online updates.
       source_pool: source-device records for Moses' adversarial term.
       seed: session base seed; per-job seeds derive from it (see
-        `derive_job_seed`).
+        `derive_job_seed`) unless `isolate_rng=False`, in which case every
+        job receives `seed` verbatim (the legacy behavior).
       trials_per_task: default measurement budget per task; overridable per
         job.
       registry: when set, every finished job's best configs are ingested
         (call `registry.save()` yourself when you want them persisted).
+      store: when set, every measurement each job makes is appended to this
+        record store (duck-typed `repro_torch.hub.store.RecordStore`:
+        put_result + flush) — the hub's persistent cross-device corpus.
+        Call `store.flush()` to persist (the TuningHub service does both).
       cost_model: scoring-model family shared by every job — a registered
         name ("mlp", ...) or a `CostModel` instance; None is the paper
         default MLP. Per-job overrides go through `run(..., cost_model=...)`.
@@ -90,6 +93,8 @@ class TuneSession:
     seed: int = 0
     trials_per_task: Optional[int] = None
     registry: Optional[Registry] = None
+    store: Optional[Any] = None  # duck-typed hub RecordStore (no dep cycle)
+    isolate_rng: bool = True
     cost_model: Union[str, CostModel, None] = None
     torch_device: TorchDevice = "cuda"
     results: List[TuneResult] = dataclasses.field(default_factory=list)
@@ -109,6 +114,8 @@ class TuneSession:
                  salt: str = "") -> int:
         """Seeds key on the strategy NAME, so a registered name and an
         instance of the same strategy land on the same stream."""
+        if not self.isolate_rng:
+            return self.seed
         return derive_job_seed(self.seed, device, strategy_name(strategy),
                                salt)
 
@@ -137,6 +144,8 @@ class TuneSession:
         self.results.append(result)
         if self.registry is not None:
             self.registry.ingest(result)
+        if self.store is not None:
+            self.store.put_result(result)
         return result
 
     def run_many(self, jobs: Union[Dict[str, Sequence[Workload]],
@@ -165,7 +174,7 @@ class TuneSession:
         Returns the per-device `TuneResult` list (job order); with
         `return_campaign=True` returns the full `CampaignResult` (trace,
         budget accounting, spec stats) instead. Either way results land in
-        `self.results` and the registry exactly like `run()`.
+        `self.results` and the registry/store exactly like `run()`.
         """
         job_list = (list(jobs.items()) if isinstance(jobs, dict)
                     else [(d, list(ts)) for d, ts in jobs])
@@ -214,7 +223,31 @@ class TuneSession:
             self.results.append(result)
             if self.registry is not None:
                 self.registry.ingest(result)
+            if self.store is not None:
+                self.store.put_result(result)
         return campaign if return_campaign else campaign.results
+
+    def refresh_params(self, device: str, params: Params, records: Records,
+                       anchor: Optional[Params] = None,
+                       weights: Optional[Params] = None,
+                       epochs: int = 8, lr: Optional[float] = None,
+                       salt: str = "") -> Tuple[Params, List[float]]:
+        """Continual-refresh training job: (re)fit `params` on `records`
+        with the lottery-mask-anchored L2 pull toward `anchor` (see
+        `repro_torch.continual.regularize.anchored_train`; `anchor`/`weights`
+        None means plain training — the cold-start path).
+
+        This is how `ModelLifecycle` refreshes ride the session machinery:
+        the job uses the session's resolved cost model on its
+        `torch_device` and an order-independent derived seed, so a
+        background refresh is as reproducible as any `run()` job. Returns
+        (new params, per-epoch losses); nothing is persisted here — the
+        lifecycle manager owns versioning and the no-regression guard."""
+        from repro_torch.continual.regularize import anchored_train
+        seed = self.job_seed(device, "continual-refresh", salt)
+        return anchored_train(self.resolved_cost_model(), params, records,
+                              anchor=anchor, weights=weights, epochs=epochs,
+                              lr=lr, seed=seed, torch_device=self.torch_device)
 
     def run_matrix(self, task_sets: Dict[str, Sequence[Workload]],
                    devices: Dict[str, str],

@@ -23,10 +23,6 @@ re-normalized per snapshot); all scoring goes through
 by default); the search and the simulated measurement run on the host with
 the reference's numpy RNG streams. Use `autotune.session.TuneSession` to run
 several (device, strategy) jobs over shared pretrained params.
-
-The reference's `calibration=` observer waits for its caller, the hub
-(ROADMAP Queue 1 item 9); campaigns observe calibration in
-`sched.engine.TaskTuner`.
 """
 from __future__ import annotations
 
@@ -110,6 +106,7 @@ def tune(
     model_update_cost: float = 2.0,
     cross_task: bool = False,
     cost_model: Union[str, CostModel, None] = None,
+    calibration=None,
     torch_device: TorchDevice = "cuda",
 ) -> TuneResult:
     """Tune `tasks` on `device` under an adaptation `strategy`.
@@ -117,6 +114,10 @@ def tune(
     `strategy` and `cost_model` accept registered names (back-compat: the
     five paper strategies and "mlp" resolve exactly as the old string API
     did) or instances for anything custom.
+
+    `calibration` (an `obs.CalibrationTracker`, optional) observes each
+    measured batch's predicted-vs-measured calibration. Pure observer:
+    passing one changes no tuning result.
 
     `device` is the simulated target; the cost model runs on
     `torch_device`, which raises when it is "cuda" and no card is present.
@@ -196,6 +197,12 @@ def tune(
                 traj.append(best_thr)
             search_s += sum(dev_mod.measurement_seconds(wl, c, device)
                             for c in cands)
+            if calibration is not None and strat.params is not None:
+                # strat.params still holds the model that scored this
+                # batch — on_round (below) is the only mutator.
+                # batched_predict is pure; the search RNG is untouched.
+                preds = cm.batched_predict(strat.params, feats)
+                calibration.observe_round(device, wl.key(), bi, preds, thr)
 
             # strategy hook: online model update on the incremental record
             # set (features were extracted once at measurement time; only

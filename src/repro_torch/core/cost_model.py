@@ -195,6 +195,17 @@ class Records:
     def __len__(self):
         return len(self.x)
 
+    @staticmethod
+    def concat(rs: List["Records"]) -> "Records":
+        """The non-empty sets stacked in order (raw throughputs dropped, as
+        in the reference)."""
+        rs = [r for r in rs if len(r)]
+        return Records(
+            np.concatenate([r.x for r in rs]),
+            np.concatenate([r.y for r in rs]),
+            np.concatenate([r.g for r in rs]),
+        )
+
     def batches(self, batch_size: int, rng: np.random.RandomState,
                 pad: bool = False, torch_device: TorchDevice = "cpu"
                 ) -> Iterator[Batch]:
@@ -390,6 +401,86 @@ def rank_correlation(params: Params, records: Records,
         if np.isfinite(c):
             taus.append(c)
     return float(np.mean(taus)) if taus else 0.0
+
+
+def pairwise_rank_accuracy(scores: np.ndarray, labels: np.ndarray,
+                           groups: np.ndarray, max_pairs: int = 8192,
+                           seed: int = 0) -> float:
+    """Fraction of same-group record pairs `scores` orders the same way as
+    `labels` (pairs with tied labels are skipped; 0.5 = chance).
+
+    The calibration signal the continual-learning subsystem reads: unlike
+    `rank_correlation` it is defined for two-record groups, degrades smoothly
+    and is directly interpretable as "how often does the model pick the
+    faster of two programs". Exhaustive when the total pair count fits in
+    `max_pairs`; otherwise a deterministic seeded subsample. Returns NaN when
+    no comparable pair exists (callers must treat that as "no signal", not
+    as drift)."""
+    scores = np.asarray(scores, np.float64)
+    labels = np.asarray(labels, np.float64)
+    groups = np.asarray(groups)
+    ii_all, jj_all = [], []
+    for g in np.unique(groups):
+        idx = np.nonzero(groups == g)[0]
+        if len(idx) < 2:
+            continue
+        a, b = np.triu_indices(len(idx), k=1)
+        ii_all.append(idx[a])
+        jj_all.append(idx[b])
+    if not ii_all:
+        return float("nan")
+    ii = np.concatenate(ii_all)
+    jj = np.concatenate(jj_all)
+    keep = labels[ii] != labels[jj]
+    ii, jj = ii[keep], jj[keep]
+    if len(ii) == 0:
+        return float("nan")
+    if len(ii) > max_pairs:
+        sel = np.random.RandomState(seed).choice(len(ii), size=max_pairs,
+                                                 replace=False)
+        ii, jj = ii[sel], jj[sel]
+    agree = np.sign(scores[ii] - scores[jj]) == np.sign(labels[ii]
+                                                        - labels[jj])
+    return float(agree.mean())
+
+
+def rank_accuracy(params: Params, records: Records,
+                  predict_fn: Callable = None, max_pairs: int = 8192,
+                  seed: int = 0) -> float:
+    """Pairwise rank accuracy of a parameter set on a record set (see
+    `pairwise_rank_accuracy`), scored where the params live. `predict_fn`
+    defaults to the MLP scoring path; pass `cost_model.batched_predict`
+    for other families."""
+    if len(records) == 0:
+        return float("nan")
+    scores = (predict_fn or predict)(params, records.x)
+    return pairwise_rank_accuracy(scores, records.y, records.g,
+                                  max_pairs=max_pairs, seed=seed)
+
+
+def _host64(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+    return np.asarray(t, np.float64)
+
+
+def param_distance(a: Params, b: Params, mask: Optional[Params] = None
+                   ) -> float:
+    """Relative L2 distance ||a - b|| / max(||b||, eps) between two param
+    mappings with the same keys and shapes, optionally restricted to entries
+    where `mask` == 1 (the lottery mask: how far a refreshed model moved
+    *within the transferable ticket* vs overall — lineage metadata for the
+    hub). Sums in float64 in sorted-key order, the reference's leaf order."""
+    num = 0.0
+    den = 0.0
+    for k in sorted(a):
+        da, db = _host64(a[k]), _host64(b[k])
+        if mask is not None:
+            m = _host64(mask[k])
+            da, db = da * m, db * m
+        num += float(np.sum((da - db) ** 2))
+        den += float(np.sum(db ** 2))
+    return float(np.sqrt(num) / max(np.sqrt(den), 1e-12))
 
 
 # ---------------------------------------------------------------------------

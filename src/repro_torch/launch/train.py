@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch recurrentgemma-2b --steps 200 --batch 8 --seq 128 [--smoke] \
-        [--autotune tpu_v5e [--scheduler gradient] [--obs DIR] [--dry-run]] \
+        [--autotune tpu_v5e [--source auto [--hub-root DIR]] \
+         [--scheduler gradient] [--obs DIR] [--dry-run]] \
         [--checkpoint-dir DIR] [--torch-device cpu]
 
 Trains the architecture with AdamW (cosine schedule, warmup steps // 20,
@@ -15,16 +16,19 @@ uses the reduced same-family config (CPU-runnable); the model runs on
 --autotune first runs Moses cost-model adaptation for the target device and
 persists the tuned kernel configs of the architecture's tasks (`arch_tasks`)
 to the port's registry (`REPRO_TORCH_TUNING_REGISTRY`, default
-`tuned_configs_torch.json`). --source names the transfer source device.
---scheduler gradient replaces the serial fixed-budget tuner with one
-scheduled campaign (`repro_torch.sched`: marginal-gain budget allocation,
-async measurement, draft-then-verify scoring), and --obs DIR writes that
-campaign's telemetry (`events.jsonl`, `campaign.trace.json`) to DIR.
+`tuned_configs_torch.json`). --source names the transfer source device, or
+'auto' to route through the transfer hub at --hub-root (fingerprint the
+target, warm-start from the nearest measured device in the persistent
+store, bootstrapping the stock source corpus on first run; see
+`repro_torch.hub`). --scheduler gradient replaces the serial fixed-budget
+tuner with one scheduled campaign (`repro_torch.sched`: marginal-gain
+budget allocation, async measurement, draft-then-verify scoring), and --obs
+DIR writes that campaign's telemetry (`events.jsonl`, `campaign.trace.json`) to DIR.
 --dry-run tunes two tasks on a tiny budget and exits before training.
 
-Not ported yet, and raising NotImplementedError: --source auto (the transfer
-hub), and the flags that need more than one card (ROADMAP Queue 1 item 12):
---production-mesh, --multi-pod, --model-parallel > 1, --opt epmoe.
+Not ported yet, and raising NotImplementedError: the flags that need more
+than one card (ROADMAP Queue 1 item 12): --production-mesh, --multi-pod,
+--model-parallel > 1, --opt epmoe.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.configs.moses import DEFAULT as MOSES_CFG
 from repro_torch.core.placement import TorchDevice
 
 if TYPE_CHECKING:
+    from repro_torch.hub import TuningHub
     from repro_torch.models.model import Model
     from repro_torch.sched.scheduler import CampaignResult
     from repro_torch.train.optimizer import AdamW
@@ -52,32 +57,49 @@ log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
+class HubAutotune:
+    """What `--source auto` did besides tuning: the hub, the tasks it queued
+    (the rest it already served), the records the source bootstrap added
+    and its seconds, the target's fingerprint seconds (0 when the store
+    already held it) and the seconds of the hub's whole flush."""
+    hub: "TuningHub"
+    queued: int
+    bootstrap_records: int
+    bootstrap_seconds: float
+    fingerprint_seconds: float
+    flush_seconds: float
+
+
+@dataclasses.dataclass
 class AutotuneRun:
-    """What one autotune step did: the tuning result, the registry it was
-    saved to, the seconds of pre-training and of tuning, and, under
-    `scheduler="gradient"`, the whole `CampaignResult` (None on the serial
-    path)."""
+    """What one autotune step did: the tuning result (None when the hub
+    already served every task), the registry it was saved to, the seconds
+    of pre-training and of tuning, under `scheduler="gradient"` the whole
+    `CampaignResult` (None on the serial path), and under `source="auto"`
+    the hub's side (`HubAutotune`; pre-training then is the hub's, its
+    losses are not kept, and tuning is the flush less fingerprint and
+    pre-training)."""
     result: object
     registry: object
     pretrain_losses: List[float]
     pretrain_seconds: float
     tune_seconds: float
     campaign: Optional["CampaignResult"] = None
+    hub: Optional[HubAutotune] = None
 
 
 def maybe_autotune(device: str, cfg, source: Optional[str] = None,
+                   hub_root: str = "artifacts/hub",
                    scheduler: str = "serial", trials: int = 48,
                    dry_run: bool = False, obs: Optional[str] = None,
                    torch_device: TorchDevice = "cuda") -> AutotuneRun:
     """Pre-train the cost model on `source` (default: the Moses source
     device), tune `arch_tasks(cfg)` for `device` under `moses` and save the
-    winners to the registry. `scheduler="gradient"` tunes the tasks as one
-    scheduled campaign (`TuneSession.run_many`, draft-then-verify scoring);
-    `obs` is a directory for that campaign's telemetry."""
-    if source == "auto":
-        raise NotImplementedError("--source auto routes through the transfer "
-                                  "hub, which waits for the port of "
-                                  "repro.hub")
+    winners to the registry. `source="auto"` routes through the transfer
+    hub at `hub_root` instead (`autotune_via_hub`). `scheduler="gradient"`
+    tunes the tasks as one scheduled campaign (`TuneSession.run_many`,
+    draft-then-verify scoring); `obs` is a directory for that campaign's
+    telemetry."""
     if scheduler not in ("serial", "gradient"):
         raise ValueError(f"unknown scheduler {scheduler!r}; expected "
                          "'serial' or 'gradient'")
@@ -98,6 +120,9 @@ def maybe_autotune(device: str, cfg, source: Optional[str] = None,
             population_size=32, evolution_rounds=2, top_k_measure=8)
         tasks = tasks[:2]
         trials = min(trials, 16)
+    if source == "auto":
+        return autotune_via_hub(device, tasks, moses_cfg, hub_root,
+                                scheduler, trials, dry_run, torch_device)
     src_device = source or moses_cfg.source_device
     log.info("Moses adaptation: source=%s target=%s scheduler=%s",
              src_device, device, scheduler)
@@ -144,6 +169,46 @@ def maybe_autotune(device: str, cfg, source: Optional[str] = None,
                        tune_s, campaign)
 
 
+def autotune_via_hub(device: str, tasks, moses_cfg, hub_root: str,
+                     scheduler: str, trials: int, dry_run: bool,
+                     torch_device: TorchDevice) -> AutotuneRun:
+    """`--source auto`: fingerprint the target, pick the nearest measured
+    source(s) from the persistent store at `hub_root` (bootstrapping the
+    stock source corpus on first run), tune on miss, and persist winners
+    into the port's default registry."""
+    from repro_torch.autotune.dataset import training_task_pool
+    from repro_torch.autotune.registry import Registry
+    from repro_torch.hub import TuningHub, bootstrap_store
+
+    log.info("Moses adaptation via hub: target=%s hub_root=%s scheduler=%s",
+             device, hub_root, scheduler)
+    hub = TuningHub(hub_root, moses_cfg=moses_cfg, registry=Registry(),
+                    trials_per_task=trials, scheduler=scheduler,
+                    torch_device=torch_device)
+    t0 = time.perf_counter()
+    booted = bootstrap_store(hub.store, [moses_cfg.source_device],
+                             training_task_pool(include_archs=False),
+                             programs_per_task=8 if dry_run else 16)
+    boot_s = time.perf_counter() - t0
+    queued = sum(hub.request(device, wl) for wl in tasks)
+    t0 = time.perf_counter()
+    results = hub.flush(device)
+    flush_s = time.perf_counter() - t0
+    sel = hub.selection(device)
+    if sel is not None:
+        log.info("transfer sources selected: %s",
+                 [(d, round(w, 3)) for d, w in sel.sources])
+    log.info("hub autotune done: tuned_tasks=%d registry=%s "
+             "already_served=%d", sum(len(r.tasks) for r in results),
+             hub.registry.path, len(tasks) - queued)
+    fp_s = hub.metrics.histogram("hub.fingerprint_seconds").total
+    pretrain_s = hub.metrics.histogram("hub.pretrain_seconds").total
+    return AutotuneRun(
+        results[0] if results else None, hub.registry, [], pretrain_s,
+        flush_s - fp_s - pretrain_s,
+        hub=HubAutotune(hub, queued, booted, boot_s, fp_s, flush_s))
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -159,8 +224,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--autotune", default=None,
                     help="target device for Moses kernel tuning")
     ap.add_argument("--source", default=None,
-                    help="source device for --autotune transfer ('auto', "
-                         "the transfer hub, is not ported yet)")
+                    help="source device for --autotune transfer, or 'auto' "
+                         "to select the nearest measured device via the "
+                         "transfer hub's fingerprint ranking")
+    ap.add_argument("--hub-root", default="artifacts/hub",
+                    help="transfer-hub root used by --source auto")
     ap.add_argument("--scheduler", default="serial",
                     choices=("serial", "gradient"),
                     help="--autotune engine: 'serial' tunes each task with "
@@ -250,8 +318,9 @@ def main(argv=None):
     run = None if args.dry_run else build_training(args)
     if args.autotune:
         maybe_autotune(args.autotune, cfg, source=args.source,
-                       scheduler=args.scheduler, trials=args.autotune_trials,
-                       dry_run=args.dry_run, obs=args.obs,
+                       hub_root=args.hub_root, scheduler=args.scheduler,
+                       trials=args.autotune_trials, dry_run=args.dry_run,
+                       obs=args.obs,
                        torch_device=args.torch_device)
         if args.dry_run:
             log.info("dry-run: autotune path OK; skipping training")

@@ -32,7 +32,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.matmul" in mods and len(mods) > 15
     assert {"repro_torch.obs", "repro_torch.models", "repro_torch.train",
             "repro_torch.serve", "repro_torch.launch.serve",
-            "repro_torch.kernels.profile"} <= set(mods)
+            "repro_torch.kernels.profile", "repro_torch.hub",
+            "repro_torch.hub.store", "repro_torch.hub.serving.index",
+            "repro_torch.continual", "repro_torch.continual.replay",
+            "repro_torch.launch.hub"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
