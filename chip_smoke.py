@@ -7,12 +7,14 @@ Builds the port's CUDA kernels (matmul and flash attention in two variants
 each, wgmma and simt; RG-LRU scan) from the five sources in this checkout,
 one nvcc each, all started together; holds each kernel against its plain
 PyTorch version on the card over its knob corners, each matmul and
-attention case naming the variant it ran; then drives eleven paths through
-the port's entry points at full width (ten serving or tuning, one
-training), each with the launch counts set to 0 just before it and read
-just after, and asserts that every GEMM of the three tuning paths below and
-of the hub path, and their attention, ran the wgmma variant. The first
-three:
+attention case naming the variant it ran; holds both registered cost
+models (`mlp`, `residual-mlp`) on the card to the CPU (`cost_model_parity`:
+scores, and one training epoch of the residual MLP); then drives twelve
+paths through the port's entry points at full width (eleven serving or
+tuning, one training), each with the launch counts set to 0 just before it
+and read just after, and asserts that every GEMM of the three tuning paths
+below and of the two hub paths, and their attention, ran the wgmma variant.
+The first three:
 
   ResNet-18 (the Moses main path)
     1. pre-train the paper's cost model (164 -> 512 -> 512 -> 1) on
@@ -122,6 +124,32 @@ the bootstrap, fingerprint, pre-train, tune and refresh seconds, the new
 measurements, the peak memory and the launches by kernel and variant.
 `hub_smoke` runs `python -m repro_torch.launch.hub --smoke --refresh` as a
 subprocess on the card; it must exit 0.
+
+The twelfth path (`hub_serve_path`) serves from the same hub root: a
+`HubServer` over the launcher's hub (the writer: full-width cost model on
+the card, 48 trials a task) with 2 reader processes, which load no torch.
+Act 1: one client asks for the model's 9 tasks on tpu_v5e_pro (tune=False),
+each key a registry hit with `hub_path`'s knobs, a second round all cache
+hits, nothing measured. Act 2: four client processes ask for all 9 tasks on
+tpu_v6e (unseen) at once with tune=True; each reader's miss funnels to the
+writer, whose `_tune_batch` is counted: no workload key in two jobs, and
+every client gets the registry's winners; the writer's params live on the
+card and its peak memory rises. Act 3: the four clients hammer the 18
+(device, task) pairs for 5 s (zero errors, zero wrong knobs; QPS, and the
+readers' merged hit and miss p50/p99). Act 4: kill -9 of one reader
+mid-hammer; it is respawned, `endpoints.json` republished, no request
+fails, and of `default_serving_slos` on 2 s / 4 s windows (serve-p99 on the
+hit path: misses here tune) only reader-respawns fires, once, then clears.
+Act 5: nvidia-smi lists no reader or client, none maps torch, each reports
+`torch` absent from `sys.modules`. Each served tpu_v6e winner then launches
+at its real shape on bf16 operands (one `hub_serve_task` line each; GEMMs
+and attention wgmma, the scan tma). `obs_cli` runs `python -m
+repro_torch.launch.obs` as subprocesses that must exit 0 and import no
+torch: `--watch --once --check` and `--explain` against the live farm,
+`--explain` again from disk after shutdown, `--check` and `--report` on
+`sched_path`'s flight record with the hub root. `hub_serve_smoke` runs
+`python -m repro_torch.launch.hub --smoke --serve` as a subprocess on the
+card; it must exit 0.
 
 Kernel times come two ways: `ms`, CUDA events around calls launched back
 to back (where a kernel is faster than its wrapper's host work, that is the
@@ -796,21 +824,25 @@ def drive_hub_path(torch_device: str, arch: str, hub_root: str,
     }
 
 
-def hub_smoke_cli(root: str, timeout_s: float = 600.0) -> dict:
-    """`python -m repro_torch.launch.hub --smoke --refresh --root ROOT`, the
-    reference's CI leg, as a subprocess on the card; it must exit 0."""
+def hub_smoke_cli(root: str, leg: str = "--refresh",
+                  timeout_s: float = 600.0) -> dict:
+    """`python -m repro_torch.launch.hub --smoke LEG --root ROOT`, one of
+    the reference's CI legs (`--refresh`: tuning and continual learning;
+    `--serve`: the serving farm), as a subprocess on the card; it must
+    exit 0."""
+    tag = "[serve-smoke]" if leg == "--serve" else "[hub-smoke]"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.hub", "--smoke",
-         "--refresh", "--root", root], cwd=ROOT, env=env,
+        [sys.executable, "-m", "repro_torch.launch.hub", "--smoke", leg,
+         "--root", root], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=timeout_s)
-    assert proc.returncode == 0 and "[hub-smoke] OK" in proc.stdout, \
+    assert proc.returncode == 0 and f"{tag} OK" in proc.stdout, \
         proc.stdout[-4000:] + proc.stderr[-4000:]
     return {"returncode": proc.returncode,
             "seconds": time.perf_counter() - t0,
             "lines": [ln for ln in proc.stdout.splitlines()
-                      if ln.startswith("[hub-smoke]")]}
+                      if ln.startswith(tag)]}
 
 
 def hub_refresh(hub, device: str) -> dict:
@@ -842,6 +874,349 @@ def hub_refresh(hub, device: str) -> dict:
                     "lineage": [e["version"] for e in lineage]})
     assert out[0]["trigger"] == "initial" and out[0]["accepted"], out[0]
     return {"refreshes": out}
+
+
+SERVE_TARGET = "tpu_v6e"        # a device the store has never seen
+SERVE_CLIENTS = 4
+
+
+def serve_slos():
+    """The stock serving SLOs (`default_serving_slos`) on 2 s and 4 s
+    windows, as the reference's monitoring e2e test uses them, so that an
+    alert fires and clears within the phase. Misses on this farm tune (seconds
+    each), so serve-p99 holds the hit path to its ceiling."""
+    import dataclasses as dc
+
+    from repro_torch.obs import default_serving_slos
+    return [dc.replace(s, key="serve.latency_seconds{path=hit}")
+            if s.name == "serve-p99" else s
+            for s in default_serving_slos(fast_window_s=2.0,
+                                          slow_window_s=4.0)]
+
+
+def obs_cli_run(argv: list, timeout_s: float = 120.0) -> dict:
+    """`python -m repro_torch.launch.obs ARGV` as a subprocess; it must exit
+    0 and import no torch (read off `-X importtime`, which lists every
+    module the run imports)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "repro_torch.launch.obs",
+         *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=timeout_s)
+    imported = {ln.rsplit("|", 1)[-1].strip()
+                for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:")}
+    errors = [ln for ln in proc.stderr.splitlines()
+              if not ln.startswith("import time:")]
+    assert proc.returncode == 0, (argv, proc.stdout[-3000:], errors[-40:])
+    assert "repro_torch.launch" in imported and "torch" not in imported, argv
+    return {"argv": argv, "returncode": proc.returncode,
+            "seconds": time.perf_counter() - t0, "torch_loaded": False,
+            "stdout": proc.stdout.splitlines()[-12:]}
+
+
+def hist_pctl(snap: dict, key: str, p: float):
+    """The p-th percentile of the histograms under `key` in a merged scrape
+    snapshot (None when empty)."""
+    from repro_torch.obs.metrics import hist_percentile
+    from repro_torch.obs.timeseries import merge_hist_states
+    states = [st for k, st in snap.get("histograms", {}).items()
+              if k == key]
+    merged = merge_hist_states(states)
+    return hist_percentile(merged, p) if merged["count"] else None
+
+
+def spawn_clients(target, args_of, n: int = SERVE_CLIENTS):
+    """`n` spawn processes of `target(*args_of(cid, out_q))`, sharing one
+    result queue; returns (processes, queue)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=args_of(cid, out_q),
+                         daemon=True) for cid in range(n)]
+    for p in procs:
+        p.start()
+    return procs, out_q
+
+
+def collect(procs, out_q, timeout_s: float) -> list:
+    reports = [out_q.get(timeout=timeout_s) for _ in procs]
+    for p in procs:
+        p.join(10.0)
+        assert not p.is_alive(), p
+    return reports
+
+
+def maps_torch(pid: int) -> bool:
+    """Whether process `pid` maps libtorch or libcuda."""
+    text = Path(f"/proc/{pid}/maps").read_text()
+    return "libtorch" in text or "libcuda" in text
+
+
+def drive_hub_serve_path(torch_device: str, arch: str, hub_root: str,
+                         trials: int, dry_run: bool = False,
+                         hammer_s: float = 5.0) -> tuple:
+    """The hub's serving front end on the root `hub_path` tuned: a
+    `HubServer` whose one writer hub (the launcher's: the port's default
+    registry, full-width cost model on `torch_device`) tunes, and 2 reader
+    processes that serve client processes. Five acts:
+
+      1. registry hits: one client asks for the model's tasks on
+         `HUB_TARGET` with tune=False; each key is a registry hit with
+         `hub_path`'s knobs (a key the same reader saw already is a cache
+         hit), a second round all cache hits, nothing measured;
+      2. tune-on-miss: `SERVE_CLIENTS` spawned clients ask for every task on
+         `SERVE_TARGET` at once with tune=True; each reader's miss funnels
+         to the writer, no workload key is tuned in two jobs, every client
+         gets the registry's winners; the writer's params live on
+         `torch_device` and its peak memory rose;
+      3. hammer: the clients run `get_config` for `hammer_s` over every
+         (device, task) pair: zero errors, zero wrong knobs; QPS and the
+         readers' merged hit and miss latency percentiles;
+      4. kill -9 one reader mid-hammer: respawned, endpoints republished,
+         zero failed requests, the reader-respawns SLO fires exactly once
+         (nothing before) and clears;
+      5. no reader or client maps torch or holds a context (nvidia-smi),
+         each reports `torch` absent from `sys.modules`.
+
+    `launch.obs` runs against the live farm (`--watch --once --check`,
+    `--explain` through the writer) and after shutdown (`--explain` from
+    disk). Returns (cfg, tasks, served registry, the phase line, the
+    `obs_cli` runs)."""
+    import dataclasses as dc
+    import signal
+
+    import torch
+
+    from repro_torch.autotune.registry import Registry
+    from repro_torch.autotune.tasks import arch_tasks
+    from repro_torch.configs import get_config
+    from repro_torch.configs.moses import DEFAULT as MOSES_CFG
+    from repro_torch.hub import HubClient, HubServer, TuningHub
+    from repro_torch.hub.serving import protocol
+    from repro_torch.hub.serving.server import endpoints_path
+    from repro_torch.launch import hub as launch_hub
+    from repro_torch.launch import obs as obs_mod
+
+    on_card = torch_device != "cpu"
+    cfg = get_config(arch)
+    tasks = arch_tasks(cfg)
+    moses_cfg = MOSES_CFG
+    if dry_run:     # maybe_autotune's CI budget, as hub_path's dry run
+        moses_cfg = dc.replace(MOSES_CFG, online_epochs=2,
+                               adaptation_epochs=2, population_size=32,
+                               evolution_rounds=2, top_k_measure=8)
+        tasks, trials = tasks[:2], min(trials, 16)
+    keys = {wl.key() for wl in tasks}
+    hub = TuningHub(hub_root, moses_cfg=moses_cfg, registry=Registry(),
+                    trials_per_task=trials, torch_device=torch_device)
+    stored = {wl.key(): dict(hub.registry.get(HUB_TARGET, wl).knobs)
+              for wl in tasks}
+    assert all(hub.registry.lookup(HUB_TARGET, wl) for wl in tasks), \
+        "hub_path left no winners"
+    jobs = []
+    tune_batch = hub._tune_batch
+
+    def counted(device, wls):
+        jobs.append(sorted(wl.key() for wl in wls))
+        return tune_batch(device, wls)
+
+    hub._tune_batch = counted
+    line = {"readers": 2, "clients": SERVE_CLIENTS, "tasks": len(tasks),
+            "distinct_keys": len(keys), "serve_target": SERVE_TARGET,
+            "hit_target": HUB_TARGET, "slos": [s.name for s in serve_slos()]}
+    acts = {}
+    obs_runs = []
+    t_phase = time.perf_counter()
+    with HubServer(hub_root, hub=hub, readers=2, slos=serve_slos()) as srv:
+        line["boot_seconds"] = time.perf_counter() - t_phase
+        # act 1: registry hits, then cache hits, nothing measured
+        t0 = time.perf_counter()
+        with HubClient(root=hub_root) as c:
+            first = [c.get_config(HUB_TARGET, wl, tune=False) for wl in tasks]
+            second = [c.get_config(HUB_TARGET, wl, tune=False)
+                      for wl in tasks]
+        seen = set()
+        for wl, r in zip(tasks, first):
+            want = "cache" if wl.key() in seen else "registry"
+            seen.add(wl.key())
+            assert r.source == want, (wl.name, r.source)
+            assert dict(r.config.knobs) == stored[wl.key()], wl.name
+        assert [r.source for r in second] == ["cache"] * len(tasks), second
+        assert all(dict(r.config.knobs) == stored[wl.key()]
+                   for wl, r in zip(tasks, second))
+        assert not jobs and hub.stats.measurements == 0
+        acts["registry_hits"] = time.perf_counter() - t0
+        line["act1_sources"] = dict(collections.Counter(
+            r.source for r in first + second))
+
+        # act 2: tune-on-miss for an unseen device, from several clients
+        pairs = [[SERVE_TARGET, protocol.workload_to_wire(wl)]
+                 for wl in tasks]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        procs, out_q = spawn_clients(
+            launch_hub._tune_client_main,
+            lambda cid, q: (hub_root, cid, pairs, q))
+        reports = collect(procs, out_q, timeout_s=900.0)
+        acts["tune_on_miss"] = time.perf_counter() - t0
+        flat = [k for job in jobs for k in job]
+        assert len(flat) == len(set(flat)), f"a key tuned twice: {jobs}"
+        assert set(flat) == keys, (jobs, keys)
+        winners = {wl.key(): dict(hub.registry.get(SERVE_TARGET, wl).knobs)
+                   for wl in tasks}
+        for rep in reports:
+            assert not rep["errors"] and not rep["torch_loaded"], rep
+            got = {a["key"]: a["knobs"] for a in rep["answers"]}
+            assert len(rep["answers"]) == len(tasks) and got == winners, rep
+        sel = hub.selection(SERVE_TARGET)
+        params_on = sorted({t.device.type
+                            for t in sel.pretrained_params.values()})
+        assert params_on == [torch.device(torch_device).type], params_on
+        if on_card:
+            peak = torch.cuda.max_memory_allocated()
+            assert peak > mem0, (peak, mem0)
+            line["act2_memory_gb"] = {"start": mem0 / 1e9,
+                                      "peak": peak / 1e9}
+        line.update(
+            jobs=jobs, measurements=hub.stats.measurements,
+            dedup_skips=hub.stats.dedup_skips,
+            writer_params_on=params_on, sources=sel.sources,
+            act2_sources=dict(collections.Counter(
+                a["source"] for rep in reports for a in rep["answers"])),
+            first_answer_s=sorted(min(a["latency_s"] for a in rep["answers"])
+                                  for rep in reports),
+            last_answer_s=sorted(max(a["latency_s"] for a in rep["answers"])
+                                 for rep in reports))
+        served = {a["key"]: a for a in reports[0]["answers"]}
+
+        # act 3: the hammer over every (device, task) pair
+        pairs = [[dev, protocol.workload_to_wire(wl)]
+                 for dev in (HUB_TARGET, SERVE_TARGET) for wl in tasks]
+        expect = {f"{dev}|{wl.key()}": dict(hub.registry.get(dev, wl).knobs)
+                  for dev in (HUB_TARGET, SERVE_TARGET) for wl in tasks}
+        t0 = time.perf_counter()
+        hammer = (launch_hub._serve_client_main,
+                  lambda cid, q: (hub_root, cid, hammer_s, q, pairs, expect))
+        procs, out_q = spawn_clients(*hammer)
+        # act 5, while readers and clients are up
+        time.sleep(min(2.0, hammer_s / 2))
+        pids = {"readers": [r.proc.pid for r in srv._readers],
+                "clients": [p.pid for p in procs]}
+        line["torch_mapped"] = {k: [maps_torch(p) for p in v]
+                                for k, v in pids.items()}
+        assert not any(any(v) for v in line["torch_mapped"].values()), line
+        if on_card:
+            apps = nvidia_smi("--query-compute-apps=pid").splitlines()
+            listed = {int(a) for a in apps if a.strip()}
+            line["compute_apps"] = sorted(listed)
+            # one context, the parent's (nvidia-smi may print pids of
+            # another namespace, so the count is the check that binds)
+            assert len(listed) <= 1, apps
+            assert not listed & set(pids["readers"] + pids["clients"]), \
+                (listed, pids)
+        reports = collect(procs, out_q, timeout_s=hammer_s + 120.0)
+        acts["hammer"] = time.perf_counter() - t0
+        n = sum(r["requests"] for r in reports)
+        assert sum(r["errors"] for r in reports) == 0, reports
+        assert sum(r["wrong"] for r in reports) == 0, reports
+        assert not any(r["torch_loaded"] for r in reports), reports
+        reader_torch = []
+        for ep in srv.endpoints():
+            with HubClient(root=hub_root, endpoints=[ep]) as c:
+                reader_torch.append(c.stats()["torch_loaded"])
+        assert reader_torch == [False, False], reader_torch
+        snap = obs_mod._writer_call(hub_root, "metrics")["snapshot"]
+        line.update(
+            pairs=len(pairs), hammer_seconds=hammer_s, requests=n,
+            qps=n / hammer_s,
+            hit_p50_ms=1e3 * hist_pctl(snap, "serve.latency_seconds{path=hit}",
+                                       50),
+            hit_p99_ms=1e3 * hist_pctl(snap, "serve.latency_seconds{path=hit}",
+                                       99),
+            miss_p50_ms=1e3 * hist_pctl(
+                snap, "serve.latency_seconds{path=miss}", 50),
+            miss_p99_ms=1e3 * hist_pctl(
+                snap, "serve.latency_seconds{path=miss}", 99),
+            reader_torch_loaded=reader_torch)
+
+        # act 4: kill -9 one reader mid-hammer
+        assert srv.slo.alerts == [] and srv.respawns == 0, srv.slo.alerts
+        t0 = time.perf_counter()
+        procs, out_q = spawn_clients(*hammer)
+        victim = srv._readers[0]
+        with HubClient(root=hub_root, endpoints=[
+                {"rid": victim.rid, "port": victim.port}]) as c:
+            base = c.stats()["served"]
+            deadline = time.monotonic() + 60
+            while c.stats()["served"] < base + 200 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+        old_port = victim.port
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            eps = json.loads(Path(endpoints_path(hub_root)).read_text())
+            if srv.respawns >= 1 and all(e["port"] != old_port
+                                         for e in eps["readers"]):
+                break
+            time.sleep(0.02)
+        respawn_s = time.perf_counter() - t_kill
+        assert srv.respawns == 1 and len(eps["readers"]) == 2, eps
+        reports = collect(procs, out_q, timeout_s=hammer_s + 120.0)
+        assert sum(r["errors"] for r in reports) == 0, reports
+        assert sum(r["wrong"] for r in reports) == 0, reports
+        n_kill = sum(r["requests"] for r in reports)
+        # the alert fires within a monitor tick or two of the respawn and
+        # clears once the respawn leaves the 4 s window, which may be
+        # before the hammer ends: read the transitions, not the state
+        deadline = time.monotonic() + 20
+        while not srv.slo.alerts and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert srv.slo.alerts and srv.slo.alerts[0]["state"] == "firing", \
+            srv.slo.alerts
+        deadline = time.monotonic() + 30
+        while srv.slo.firing() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        fired = [a for a in srv.slo.alerts if a["state"] == "firing"]
+        assert len(fired) == 1 and fired[0]["slo"] == "reader-respawns", \
+            srv.slo.alerts
+        assert srv.slo.firing() == [], srv.slo.alerts
+        acts["kill_respawn"] = time.perf_counter() - t0
+        line.update(respawns=srv.respawns, respawn_seconds=respawn_s,
+                    kill_hammer_requests=n_kill,
+                    alerts=[{k: a.get(k) for k in ("slo", "state")}
+                            for a in srv.slo.alerts],
+                    health=obs_mod._writer_call(hub_root, "health"))
+
+        # launch.obs against the live farm
+        obs_runs.append(obs_cli_run(["--watch", "--once", "--check",
+                                     "--root", hub_root]))
+        live = obs_cli_run(["--explain", SERVE_TARGET, "attention",
+                            "--root", hub_root])
+        # the writer's answer carries its registry entry (the launcher's
+        # registry, not `<root>/tuned_configs.json` that disk reads)
+        assert any("- registry serves:" in ln for ln in live["stdout"]), live
+        obs_runs.append(live)
+    disk = obs_cli_run(["--explain", SERVE_TARGET, "attention",
+                        "--root", hub_root])
+    assert not any("- registry serves:" in ln for ln in disk["stdout"]), disk
+    obs_runs.append(disk)
+    line["acts_seconds"] = acts
+    line["seconds"] = time.perf_counter() - t_phase
+    # the served winners, as the clients received them
+    served_reg = Registry(path=str(Path(hub_root) / "served_winners.json"))
+    for wl in tasks:
+        a = served[wl.key()]
+        served_reg.put(SERVE_TARGET, wl, protocol.config_from_wire(a["knobs"]),
+                       None)
+    return cfg, tasks, served_reg, line, obs_runs
+
 
 
 def sched_summary(run, serial_run, obs_dir: str) -> dict:
@@ -949,9 +1324,7 @@ def sched_farm(torch_device: str, moses_cfg, trials: int = 16,
                     line["parent_pid"] = os.getpid()
                     # a worker imports no torch: it maps no torch library
                     for pid in pids:
-                        maps = Path(f"/proc/{pid}/maps").read_text()
-                        assert "libtorch" not in maps and \
-                            "libcuda" not in maps, pid
+                        assert not maps_torch(pid), pid
                     if torch_device != "cpu":
                         # one context, and no worker's
                         apps = nvidia_smi(
@@ -1965,21 +2338,77 @@ def zoo_train_check(torch_device: str) -> list:
     return out
 
 
-def cost_model_parity(torch_device: str, moses_cfg) -> float:
-    """The full-width cost model scores the same on the card as on the CPU
-    (TF32 off): returns the max relative difference, raises above 1e-4."""
+def cost_model_parity(torch_device: str, moses_cfg) -> dict:
+    """Both registered cost models at full width score the same on the card
+    as on the CPU (TF32 off; max relative difference below 1e-4), and one
+    training epoch of the residual MLP (40 records: one bucket-padded batch
+    of 64, the same pairs on both sides) gives the same loss (rel 1e-5),
+    gradients (1e-4 * |g| + 1e-5 * max|g|) and Adam step (2e-6 where the
+    gradient has a sign; elsewhere Adam turns rounding noise into a step
+    of at most lr on either side, as tests/test_torch_cost_model.py
+    sets out)."""
     import numpy as np
+    import torch
 
-    from repro_torch.core.cost_model import resolve_cost_model
-    x = np.random.RandomState(0).rand(64, moses_cfg.cost_model.feature_dim)
-    cpu = resolve_cost_model("mlp", moses_cfg.cost_model, "cpu")
-    card = resolve_cost_model("mlp", moses_cfg.cost_model, torch_device)
-    params = cpu.init(0)
-    want = cpu.predict(params, x)
-    got = card.predict(card.clone_params(params), x)
-    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
-    assert rel < 1e-4, f"cost model on the card differs from the CPU: {rel}"
-    return rel
+    from repro_torch.autotune.dataset import generate_records
+    from repro_torch.autotune.tasks import resnet18_tasks
+    from repro_torch.core import cost_model as cm
+    cfg = moses_cfg.cost_model
+    x = np.random.RandomState(0).rand(64, cfg.feature_dim)
+    out = {}
+    for name in ("mlp", "residual-mlp"):
+        cpu = cm.resolve_cost_model(name, cfg, "cpu")
+        card = cm.resolve_cost_model(name, cfg, torch_device)
+        params = cpu.init(0)
+        want = cpu.predict(params, x)
+        got = card.predict(card.clone_params(params), x)
+        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        assert rel < 1e-4, f"{name} on the card differs from the CPU: {rel}"
+        out[name] = {"predict_max_rel_diff": rel}
+    # one training epoch of the residual MLP, from its CPU init
+    params = cm.resolve_cost_model("residual-mlp", cfg, "cpu").init(0)
+    recs = generate_records(resnet18_tasks()[:5], "tpu_v5p",
+                            programs_per_task=8, seed=2)
+    sub = recs.x[:40], recs.y[:40], recs.g[:40]
+    pairs = tuple(np.random.RandomState(3).randint(
+        0, 64, (2, cfg.rank_pairs_per_batch)))
+    sides = {}
+    for dev in ("cpu", torch_device):
+        model = cm.resolve_cost_model("residual-mlp", cfg, dev)
+        (batch,) = list(cm.Records(*sub).batches(
+            cfg.batch_size, np.random.RandomState(3), pad=True,
+            torch_device=dev))
+        p = model.clone_params(params)
+        loss, grads = cm.loss_and_grad(
+            lambda q: cm.model_loss(q, batch, None, cfg.loss,
+                                    cfg.rank_pairs_per_batch, model.forward,
+                                    pairs=pairs), p)
+        new, _, _ = cm.train_step(p, cm.adam_init(p), batch, cfg, cfg.lr,
+                                  forward=model.forward, pairs=pairs)
+        sides[dev] = (float(loss),
+                      {k: v.double().cpu() for k, v in grads.items()},
+                      {k: v.double().cpu() for k, v in new.items()})
+    (l0, g0, n0), (l1, g1, n1) = sides["cpu"], sides[torch_device]
+    g_top = max(float(g.abs().max()) for g in g0.values())
+    worst = {"loss_rel": abs(l1 - l0) / abs(l0), "grad": 0.0, "step": 0.0}
+    for k in g0:
+        tol = 1e-4 * g0[k].abs() + 1e-5 * g_top
+        worst["grad"] = max(worst["grad"],
+                            float(((g1[k] - g0[k]).abs() / tol).max()))
+        signed = g0[k].abs() > 1e-5 * g_top
+        p0 = params[k].double()
+        if bool(signed.any()):
+            worst["step"] = max(worst["step"], float(
+                (n1[k] - n0[k]).abs()[signed].max()) / 2e-6)
+        for side in (n0[k], n1[k]):
+            moved = (side - p0).abs()[~signed]
+            if moved.numel():
+                assert float(moved.max()) <= cfg.lr, (k, float(moved.max()))
+    assert worst["loss_rel"] <= 1e-5 and worst["grad"] <= 1.0 and \
+        worst["step"] <= 1.0, worst
+    out["residual-mlp"].update(epoch_loss=l1, epoch_loss_cpu=l0,
+                               worst_share_of_tolerance=worst)
+    return out
 
 
 def build_all(build) -> dict:
@@ -2048,8 +2477,7 @@ def run_phases(torch, tmp: str) -> int:
          **scan_check(lru, "cuda"))
 
     moses_cfg = MosesConfig()
-    emit("cost_model_parity", max_rel_diff=cost_model_parity("cuda",
-                                                             moses_cfg))
+    emit("cost_model_parity", **cost_model_parity("cuda", moses_cfg))
 
     # path 1: ResNet-18 GEMMs
     tasks = resnet18_tasks()
@@ -2292,6 +2720,58 @@ def run_phases(torch, tmp: str) -> int:
     torch.cuda.synchronize()
     emit("hub_smoke", **hub_smoke_cli(str(Path(tmp) / "hub_smoke")))
 
+    # path 12: the hub's serving front end on the same root — a HubServer
+    # whose writer hub tunes on the card and whose torch-free reader
+    # processes serve client processes — then each tpu_v6e winner the
+    # clients were served launches at the model's shape
+    import types
+    hub_root = str(Path(tmp) / "hub")
+    torch.cuda.empty_cache()
+    hs_mem_start = torch.cuda.memory_allocated() / 1e9
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    cfg, serve_tasks, served_reg, serve_line, obs_runs = \
+        drive_hub_serve_path("cuda", "recurrentgemma-2b", hub_root,
+                             trials=48)
+    hs_calls = launch_tuned(cfg, types.SimpleNamespace(registry=served_reg),
+                            "cuda", seed=8, device=SERVE_TARGET,
+                            workloads=serve_tasks)
+    hs_launches = {"matmul": mm.matmul.launches,
+                   "flash_attention": fa.flash_attention.launches,
+                   "rg_lru": lru.rg_lru.launches}
+    hs_mm = dict(mm.matmul.launches_by_variant)
+    hs_fa = dict(fa.flash_attention.launches_by_variant)
+    emit("hub_serve_path", arch=cfg.name, launches=hs_launches,
+         matmul_launches_by_variant=hs_mm,
+         flash_attention_launches_by_variant=hs_fa,
+         memory_allocated_at_start_gb=hs_mem_start,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **serve_line)
+    assert len(hs_calls) == 9, [wl.name for wl, _, _ in hs_calls]
+    assert hs_mm["wgmma"] >= 7 and hs_mm["simt"] == 0, hs_mm
+    assert hs_fa["wgmma"] >= 1 and hs_fa["simt"] == 0, hs_fa
+    assert hs_launches["rg_lru"] >= 1, hs_launches
+    hs_err = {"flash_attention": 0.0, "rg_lru": 0.0}
+    for wl, args, out in hs_calls:
+        knobs = served_reg.get(SERVE_TARGET, wl).as_dict()
+        line = lm_task_line(wl, args, out, knobs, (mm, fa, lru))
+        emit("hub_serve_task", device=SERVE_TARGET, **line)
+        if wl.kind == "matmul":
+            assert line["variant"] == "wgmma", line
+            worst = max(worst, line["max_abs_err"])
+        else:
+            if wl.kind == "attention":
+                assert line["variant"] == "wgmma", line
+            else:
+                assert line["route"] == "tma", line
+            hs_err["flash_attention" if wl.kind == "attention"
+                   else "rg_lru"] = line["max_abs_err"]
+    torch.cuda.synchronize()
+    obs_runs += [obs_cli_run(["--check", obs_dir, "--root", hub_root]),
+                 obs_cli_run(["--report", obs_dir, "--root", hub_root])]
+    emit("obs_cli", runs=obs_runs)
+    emit("hub_serve_smoke", **hub_smoke_cli(
+        str(Path(tmp) / "hub_serve_smoke"), leg="--serve"))
+
     # one entry per ported kernel. matmul's times are sums over the first
     # two tuning paths' GEMMs (one launch each); the other two are their one
     # task's in the second. Launches by path: the three tuning paths, then
@@ -2304,6 +2784,7 @@ def run_phases(torch, tmp: str) -> int:
                 "recurrentgemma-2b": lm_launches[name],
                 "sched_path": sched_launches[name],
                 "hub_path": hub_launches[name],
+                "hub_serve_path": hs_launches[name],
                 **{p: z["launches"][name] for p, z in serve_paths.items()}}
 
     def by_variant(name: str, tuning: dict) -> dict:
@@ -2323,7 +2804,7 @@ def run_phases(torch, tmp: str) -> int:
         "launches": sum(paths.values()),
         "launches_by_variant": by_variant("matmul", {
             v: launches["by_variant"][v] + lm_by_variant[v] + sched_mm[v]
-            + hub_mm[v] for v in ("wgmma", "simt")}),
+            + hub_mm[v] + hs_mm[v] for v in ("wgmma", "simt")}),
         "launches_by_path": paths,
         "checked": True, "max_abs_err": worst,
         "ms": totals["ms"], "device_ms": totals["device_ms"],
@@ -2339,7 +2820,7 @@ def run_phases(torch, tmp: str) -> int:
                 "sources": {"wgmma": f"{csrc}/flash_attention_wgmma.cu",
                             "simt": f"{csrc}/flash_attention.cu"},
                 "launches_by_variant": by_variant("flash_attention", {
-                    v: fa_by_variant[v] + sched_fa[v] + hub_fa[v]
+                    v: fa_by_variant[v] + sched_fa[v] + hub_fa[v] + hs_fa[v]
                     for v in ("wgmma", "simt")})}),
             ("rg_lru", "rg_lru.cu",
              {"replaces": "src/repro/kernels/rg_lru.py:57"})):
@@ -2352,7 +2833,7 @@ def run_phases(torch, tmp: str) -> int:
             "launches_by_path": paths,
             "checked": True,
             "max_abs_err": max(line["max_abs_err"], sched_err[name],
-                               hub_err[name]),
+                               hub_err[name], hs_err[name]),
             "ms": line["ms"], "device_ms": line["device_ms"],
             "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],

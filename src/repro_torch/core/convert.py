@@ -41,11 +41,39 @@ def _check_mlp_layers(tree: Mapping, where: str) -> None:
             raise ValueError(f"{where}: layer {i} does not chain")
 
 
+def _check_residual_layers(tree: Mapping, where: str) -> None:
+    """`w_in, b_in, w0, b0, ..., w_out, b_out` of `ResidualMLPCostModel`:
+    square blocks of the input projection's width and a one-column head."""
+    keys = set(tree)
+    n = len([k for k in keys if re.fullmatch(r"w\d+", k)])
+    want = ({"w_in", "b_in", "w_out", "b_out"}
+            | {f"{p}{i}" for i in range(n) for p in "wb"})
+    if keys != want:
+        raise ValueError(f"{where}: expected keys {sorted(want)}, "
+                         f"got {sorted(keys)}")
+    width = np.shape(tree["w_in"])[1]
+    shapes = {"b_in": (width,), "w_out": (width, 1), "b_out": (1,),
+              **{f"w{i}": (width, width) for i in range(n)},
+              **{f"b{i}": (width,) for i in range(n)}}
+    for k, shape in shapes.items():
+        if np.shape(tree[k]) != shape:
+            raise ValueError(f"{where}: {k} has shape {np.shape(tree[k])}, "
+                             f"expected {shape}")
+
+
+def _check_cost_model(tree: Mapping, where: str) -> None:
+    if "w_in" in tree:
+        _check_residual_layers(tree, where)
+    else:
+        _check_mlp_layers(tree, where)
+
+
 def cost_model_params(tree: Mapping, torch_device: TorchDevice = "cuda"
                       ) -> Params:
-    """The reference's MLP cost-model params (`w0, b0, ..., wL, bL`) as
-    tensors on `torch_device`."""
-    _check_mlp_layers(tree, "cost-model params")
+    """The reference's cost-model params as tensors on `torch_device`: the
+    MLP's (`w0, b0, ..., wL, bL`) or the residual MLP's (`w_in, b_in, w0,
+    b0, ..., w_out, b_out`)."""
+    _check_cost_model(tree, "cost-model params")
     return _to_tensors(tree, torch_device)
 
 
@@ -66,7 +94,7 @@ def cost_model_params_from_npz(path: str, torch_device: TorchDevice = "cuda"
                                ) -> Params:
     """Cost-model params from a `.npz` either package wrote."""
     params, _ = load_params(path, torch_device)
-    _check_mlp_layers(params, path)
+    _check_cost_model(params, path)
     return params
 
 

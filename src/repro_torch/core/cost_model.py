@@ -637,3 +637,52 @@ class MLPCostModel(CostModel):
 
     def forward(self, params, x, return_hidden: bool = False):
         return mlp_forward(params, x, return_hidden=return_hidden)
+
+
+@register_cost_model("residual-mlp")
+class ResidualMLPCostModel(CostModel):
+    """Deeper residual scorer proving the `CostModel` API (TLP/Pruner-style
+    swap): input projection to `width`, `depth` residual ReLU blocks, linear
+    head. Narrower than the paper MLP by default, so it doubles as a cheap
+    draft scorer (Pruner's draft-then-verify explorer). Params are keyed
+    `w_in, b_in, w0, b0, ..., w_out, b_out`, as the reference's."""
+
+    def __init__(self, cfg: Optional[CostModelConfig] = None,
+                 width: int = 256, depth: int = 3,
+                 torch_device: TorchDevice = "cuda"):
+        super().__init__(cfg, torch_device=torch_device)
+        self.width = width
+        self.depth = depth
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.width
+
+    def init(self, rng: Union[int, torch.Generator]) -> Params:
+        gen = as_generator(rng)
+        f, w = self.cfg.feature_dim, self.width
+
+        def normal(din, dout):
+            return (torch.randn((din, dout), generator=gen)
+                    / np.sqrt(din)).to(self.torch_device)
+
+        params = {"w_in": normal(f, w),
+                  "b_in": torch.zeros((w,), device=self.torch_device)}
+        for i in range(self.depth):
+            params[f"w{i}"] = normal(w, w)
+            params[f"b{i}"] = torch.zeros((w,), device=self.torch_device)
+        params["w_out"] = normal(w, 1)
+        params["b_out"] = torch.zeros((1,), device=self.torch_device)
+        return params
+
+    def forward(self, params, x, return_hidden: bool = False):
+        # depth is recovered from the params so `forward` stays pure
+        blocks = len([k for k in params
+                      if k.startswith("w") and k not in ("w_in", "w_out")])
+        h = x @ params["w_in"] + params["b_in"]
+        for i in range(blocks):
+            h = h + torch.relu(h @ params[f"w{i}"] + params[f"b{i}"])
+        score = (h @ params["w_out"] + params["b_out"])[..., 0]
+        if return_hidden:
+            return score, h
+        return score

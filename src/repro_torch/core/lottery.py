@@ -94,3 +94,9 @@ def masked_update(params: Tree, updates: Tree, mask: Tree,
         variant = w * keep
         out[k] = m * invariant + (1 - m) * variant
     return out
+
+
+def prune_variant(params: Tree, mask: Tree) -> Tree:
+    """Hard-prune the domain-variant parameters (winning-ticket extraction,
+    used by the reference's ablation in benchmarks/fig6)."""
+    return {k: w * mask[k] for k, w in params.items()}

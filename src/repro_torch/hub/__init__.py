@@ -20,9 +20,10 @@ Sits between the simulator/dataset layer and the tuning stack:
                   the tuned-config LRU cache / Registry on hit and schedules
                   batched TuneSession jobs on miss (in-flight dedup,
                   writeback of winners and of every new measurement)
-  serving/        indexed reads and the tuned-config cache; the socket
-                  front end (`HubServer`, `HubClient`, `ServeResult`) waits
-                  for ROADMAP Queue 1 item 9b and raises NotImplementedError
+  serving/        the production read path: indexed reads, the tuned-config
+                  cache, and the socket front end — `HubServer` (one writer
+                  hub on the card, N torch-free reader processes) and
+                  `HubClient` (endpoint discovery, reader failover)
 
 Exports resolve lazily (PEP 562): readers import `repro_torch.hub.store` /
 `repro_torch.hub.serving.*` without paying for the tuning stack
@@ -53,6 +54,12 @@ _EXPORTS = {
     "TuningHub": "repro_torch.hub.service",
     "HubResponse": "repro_torch.hub.service",
     "HubStats": "repro_torch.hub.service",
+    "HubServer": "repro_torch.hub.serving.server",
+    "HubClient": "repro_torch.hub.serving.client",
+    "ServeResult": "repro_torch.hub.serving.client",
+    "ProtocolError": "repro_torch.hub.serving.protocol",
+    "send_frame": "repro_torch.hub.serving.protocol",
+    "recv_frame": "repro_torch.hub.serving.protocol",
     "TunedConfigCache": "repro_torch.hub.serving.cache",
     "LatencyWindow": "repro_torch.hub.serving.cache",
 }
@@ -61,9 +68,6 @@ __all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name):
-    from repro_torch.hub.serving import NOT_PORTED, not_ported
-    if name in NOT_PORTED:
-        raise not_ported(name)
     target = _EXPORTS.get(name)
     if target is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,9 +23,9 @@ record of one tuned winner:
     while it chose (`obs/calibration.py`).
 
 Records persist next to the store's shards (`RecordStore.put_provenance`)
-behind the schema bump to v2 and are read back by `TuningHub.explain` (the
-reference's RPC `explain` op and `launch.obs --explain` wait for ROADMAP
-Queue 1 item 9b). This module itself stays import-light
+behind the schema bump to v2 and are read back by `TuningHub.explain`, the
+serving writer's RPC `explain` op and `launch.obs --explain` (which falls
+back to the shards on disk). This module itself stays import-light
 (no torch at module scope): `ticket_overlap` pulls torch lazily, so the
 serving/CLI read path can deserialize records without the tuning stack.
 """

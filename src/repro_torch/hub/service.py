@@ -555,9 +555,8 @@ class TuningHub:
         """The full story behind one served winner: its provenance record
         (sources, lineage, ticket overlap, budget, calibration at tuning
         time) joined with the registry entry it produced. None when the hub
-        never tuned (device, task). (The reference also serves it over
-        RPC and renders it in `launch.obs --explain`; both wait for ROADMAP
-        Queue 1 item 9b.)"""
+        never tuned (device, task). The serving writer answers its RPC
+        `explain` op with it, and `launch.obs --explain` renders it."""
         prov = self.store.get_provenance(device, task_key)
         if prov is None:
             return None

@@ -1,15 +1,17 @@
-"""Hub serving subsystem (port of `repro.hub.serving`): the read path for
-tuned configs.
+"""Hub serving subsystem (port of `repro.hub.serving`): the production read
+path for tuned configs.
 
   index.py     byte-offset sidecar indexes over the JSONL record shards
   cache.py     tuned-config LRU + latency windows (the zero-I/O hit path)
-
-The reference's socket front end (`protocol.py`, `server.py`,
-`client.py`) waits for ROADMAP Queue 1 item 9b: asking for its names
-raises NotImplementedError.
+  protocol.py  length-prefixed JSON socket framing + wire forms
+  server.py    spawn-based multi-process front end: N read-only reader
+               processes, tune-on-miss funneled to the single writer hub
+  client.py    socket client with endpoint discovery and reader failover
 
 Submodules resolve lazily (PEP 562): `store.py` imports `serving.index`,
-and read-only callers should not pay for modules they never touch.
+while `serving.server` imports the store back — eager package imports would
+cycle, and read-only client and reader processes should not pay for
+modules they never touch (they load no torch).
 """
 from __future__ import annotations
 
@@ -23,24 +25,18 @@ _EXPORTS = {
     "read_rows": "repro_torch.hub.serving.index",
     "TunedConfigCache": "repro_torch.hub.serving.cache",
     "LatencyWindow": "repro_torch.hub.serving.cache",
+    "ProtocolError": "repro_torch.hub.serving.protocol",
+    "send_frame": "repro_torch.hub.serving.protocol",
+    "recv_frame": "repro_torch.hub.serving.protocol",
+    "HubServer": "repro_torch.hub.serving.server",
+    "HubClient": "repro_torch.hub.serving.client",
+    "ServeResult": "repro_torch.hub.serving.client",
 }
-
-# the reference's socket front end, not ported yet
-NOT_PORTED = ("ProtocolError", "send_frame", "recv_frame", "HubServer",
-              "HubClient", "ServeResult")
 
 __all__ = sorted(_EXPORTS)
 
 
-def not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} belongs to the hub's socket front end, which waits for "
-        f"ROADMAP Queue 1 item 9b")
-
-
 def __getattr__(name):
-    if name in NOT_PORTED:
-        raise not_ported(name)
     target = _EXPORTS.get(name)
     if target is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -18,7 +18,14 @@ here. Each module is a copy of the reference's with its imports repointed:
   * `get_logger` (obs.logging): the `[name] msg key=value` status logger
     whose warning+ lines a running recorder captures.
 
-The serving monitors of the reference (`timeseries`, `slo`) wait.
+The always-on monitoring layer of a serving farm:
+
+  * `repro_torch.obs.timeseries` — `TimeSeriesSampler` snapshots a
+    registry at a fixed interval into a bounded ring; windowed rate and
+    percentile queries are reset-safe deltas between ring entries.
+  * `repro_torch.obs.slo` — declarative `SLOSpec`s evaluated over fast and
+    slow windows with hysteresis (`SLOEvaluator`), whose alert
+    transitions go to the logger (and thus any running recorder).
 """
 from repro_torch.obs import metrics, trace
 from repro_torch.obs.calibration import CalibrationTracker
@@ -27,6 +34,10 @@ from repro_torch.obs.metrics import (Counter, Gauge, Histogram, LatencyWindow,
                                      MetricsRegistry, current, pop_registry,
                                      push_registry)
 from repro_torch.obs.recorder import FlightRecorder, summarize_trace
+from repro_torch.obs.slo import (SLOEvaluator, SLOSpec, SLOStatus,
+                                 default_serving_slos)
+from repro_torch.obs.timeseries import (TimeSeriesSampler, WindowDelta,
+                                        reset_safe_delta)
 from repro_torch.obs.trace import (SpanContext, Tracer, current_context,
                                    remote_event, span, to_chrome_trace,
                                    validate_events)
@@ -38,4 +49,6 @@ __all__ = [
     "FlightRecorder", "summarize_trace", "SpanContext", "Tracer",
     "current_context", "remote_event", "span", "to_chrome_trace",
     "validate_events", "get_logger", "metrics", "trace",
+    "TimeSeriesSampler", "WindowDelta", "reset_safe_delta",
+    "SLOEvaluator", "SLOSpec", "SLOStatus", "default_serving_slos",
 ]

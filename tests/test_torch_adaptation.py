@@ -175,3 +175,33 @@ def test_adapter_streams_match_reference(data):
     assert [h["mask_frac"] for h in tad_.history] == pytest.approx(
         [h["mask_frac"] for h in jad_.history], abs=1e-3)
     assert all(np.isfinite(h["loss"]) for h in tad_.history)
+
+
+@pytest.mark.parametrize("ratio", [0.3, 0.7])
+def test_prune_variant_matches(ratio):
+    """Winning-ticket extraction: the variant params are zeroed exactly as
+    the reference zeroes them."""
+    rng = np.random.RandomState(int(ratio * 10))
+    params = {"w0": rng.randn(12, HIDDEN).astype(np.float32),
+              "b0": rng.randn(HIDDEN).astype(np.float32),
+              "w1": rng.randn(HIDDEN, 1).astype(np.float32),
+              "b1": rng.randn(1).astype(np.float32)}
+    grads = {k: rng.randn(*v.shape).astype(np.float32)
+             for k, v in params.items()}
+    jmask = jlot.transferable_mask({k: jnp.asarray(v) for k, v in
+                                    params.items()},
+                                   {k: jnp.asarray(v) for k, v in
+                                    grads.items()}, ratio=ratio)
+    tmask = tlot.transferable_mask({k: torch.as_tensor(v) for k, v in
+                                    params.items()},
+                                   {k: torch.as_tensor(v) for k, v in
+                                    grads.items()}, ratio=ratio)
+    want = jlot.prune_variant({k: jnp.asarray(v) for k, v in params.items()},
+                              jmask)
+    got = tlot.prune_variant({k: torch.as_tensor(v) for k, v in
+                              params.items()}, tmask)
+    for k in params:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    kept = sum(int((got[k] != 0).sum()) for k in got)
+    assert kept == int(round(float(tlot.mask_fraction(tmask))
+                             * sum(v.size for v in params.values())))

@@ -110,22 +110,6 @@ def test_cli_dry_run(registry_file):
     assert len(t_registry.Registry(registry_file)._data["tpu_v5e"]) == 2
 
 
-@pytest.mark.parametrize("ask,waits_for", [
-    (["--serve"], "item 9b"), (["--smoke", "--serve"], "item 9b"),
-    ("HubServer", "item 9b"), ("HubClient", "item 9b"),
-    ("ServeResult", "item 9b")])
-def test_unported_options_raise(ask, waits_for, tmp_path):
-    """What the tuning path still lacks: the hub's serving front end
-    (`--source auto` itself runs; tests/test_torch_hub.py)."""
-    import repro_torch.hub
-    from repro_torch.launch import hub as launch_hub
-    with pytest.raises(NotImplementedError, match=waits_for):
-        if isinstance(ask, list):
-            launch_hub.main(ask + ["--root", str(tmp_path)])
-        else:
-            getattr(repro_torch.hub, ask)
-
-
 def test_gradient_dry_run_fills_registry_and_writes_telemetry(
         registry_file, tmp_path):
     obs = str(tmp_path / "obs")

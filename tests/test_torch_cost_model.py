@@ -240,3 +240,115 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model = tcm.resolve_cost_model("mlp", TCfg(**CFG), "cpu")
     with pytest.raises(RuntimeError):
         tcm.resolve_cost_model(model)  # a CPU instance, asked for on "cuda"
+
+
+# --- the residual MLP ("residual-mlp") -------------------------------------
+
+RES = dict(width=32, depth=2)
+
+
+@pytest.fixture(scope="module")
+def jres():
+    model = jcm.ResidualMLPCostModel(JCfg(**CFG), **RES)
+    return model, model.init(jax.random.PRNGKey(5))
+
+
+def test_residual_mlp_registered_like_the_reference():
+    model = tcm.resolve_cost_model("residual-mlp", TCfg(**CFG), "cpu")
+    ref = jcm.resolve_cost_model("residual-mlp", JCfg(**CFG))
+    assert isinstance(model, tcm.ResidualMLPCostModel)
+    assert (model.width, model.depth, model.hidden_dim) == \
+        (ref.width, ref.depth, ref.hidden_dim) == (256, 3, 256)
+    p, jp = model.init(0), ref.init(jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in p.items()} == \
+        {k: tuple(v.shape) for k, v in jp.items()}
+    assert float(p["b_in"].abs().max()) == float(p["b_out"].abs().max()) == 0
+
+
+def test_residual_mlp_forward_and_predict_match(records, jres):
+    jmodel, jparams = jres
+    model = tcm.ResidualMLPCostModel(TCfg(**CFG), torch_device="cpu", **RES)
+    tp = convert.cost_model_params(np_tree(jparams), "cpu")
+    want = jmodel.predict(jparams, records.x)
+    got = model.predict(tp, records.x)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(model.batched_predict(tp, records.x),
+                               jmodel.batched_predict(jparams, records.x),
+                               rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    score, hidden = model.forward(tp, torch.as_tensor(records.x),
+                                  return_hidden=True)
+    jscore, jhidden = jmodel.forward(jparams, jax.numpy.asarray(records.x),
+                                     return_hidden=True)
+    assert hidden.shape == (len(records.x), model.hidden_dim)
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(jhidden),
+                               rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jhidden).max()))
+    # depth is read back from the params: a 3-block tree scores as the
+    # reference scores it, whatever the instance's depth
+    deep = jcm.ResidualMLPCostModel(JCfg(**CFG), width=32, depth=3)
+    jdeep = deep.init(jax.random.PRNGKey(6))
+    np.testing.assert_allclose(
+        model.predict(convert.cost_model_params(np_tree(jdeep), "cpu"),
+                      records.x[:8]),
+        deep.predict(jdeep, records.x[:8]), rtol=1e-5, atol=1e-5)
+
+
+def test_residual_mlp_one_training_epoch_matches(records, jres):
+    """One epoch of 40 records (one bucket-padded batch of 64) with the
+    pairs JAX draws: loss, gradients and the Adam step as the MLP's."""
+    jmodel, jparams = jres
+    seed = 7
+    sub = records.x[:40], records.y[:40], records.g[:40]
+    jcfg, tcfg = JCfg(**CFG), TCfg(**CFG)
+    want, jlosses = jcm.train_cost_model(jparams, jcm.Records(*sub), jcfg,
+                                         epochs=1, seed=seed, pad=True,
+                                         forward=jmodel.forward)
+    _, key = jax.random.split(jax.random.PRNGKey(seed))
+    pairs = _jax_pairs(key, 64, jcfg.rank_pairs_per_batch)
+    model = tcm.ResidualMLPCostModel(tcfg, torch_device="cpu", **RES)
+    tp = convert.cost_model_params(np_tree(jparams), "cpu")
+    (batch,) = list(tcm.Records(*sub).batches(
+        tcfg.batch_size, np.random.RandomState(seed), pad=True,
+        torch_device="cpu"))
+    jbatch = next(jcm.Records(*sub).batches(
+        jcfg.batch_size, np.random.RandomState(seed), pad=True))
+    _, jgrads = jcm._loss_and_grad(jparams, jbatch, key, "rank",
+                                   jcfg.rank_pairs_per_batch, jmodel.forward)
+    tloss, tgrads = tcm.loss_and_grad(
+        lambda p: tcm.model_loss(p, batch, None, "rank",
+                                 tcfg.rank_pairs_per_batch, model.forward,
+                                 pairs=pairs), tp)
+    np.testing.assert_allclose(float(tloss), jlosses[0], rtol=1e-5)
+    assert_tree_close(t_tree(tgrads), np_tree(jgrads), rtol=1e-4,
+                      rel_atol=1e-5)
+    new, _, loss = tcm.train_step(tp, tcm.adam_init(tp), batch, tcfg,
+                                  tcfg.lr, forward=model.forward,
+                                  pairs=pairs)
+    np.testing.assert_allclose(float(loss), jlosses[0], rtol=1e-5)
+    g_top = max(float(np.abs(np.asarray(g)).max()) for g in jgrads.values())
+    got_new, want_new = t_tree(new), np_tree(want)
+    for k, p0 in np_tree(jparams).items():
+        signed = np.abs(np.asarray(jgrads[k])) > 1e-5 * g_top
+        np.testing.assert_allclose(got_new[k][signed], want_new[k][signed],
+                                   rtol=0, atol=2e-6, err_msg=k)
+        for side in (got_new[k], want_new[k]):
+            assert np.abs(side - p0)[~signed].max(initial=0) <= tcfg.lr
+
+
+def test_residual_mlp_npz_round_trip_and_structure(tmp_path, jres):
+    jmodel, jparams = jres
+    jpath = str(tmp_path / "res.npz")
+    jmodel.save(jparams, jpath)
+    model = tcm.resolve_cost_model("residual-mlp", TCfg(**CFG), "cpu")
+    assert_tree_close(t_tree(model.load(jpath)), np_tree(jparams))
+    assert_tree_close(t_tree(convert.cost_model_params_from_npz(jpath,
+                                                                "cpu")),
+                      np_tree(jparams))
+    with pytest.raises(ValueError, match="not 'mlp'"):
+        tcm.resolve_cost_model("mlp", TCfg(**CFG), "cpu").load(jpath)
+    tree = np_tree(jparams)
+    for broken in ({k: v for k, v in tree.items() if k != "b_out"},
+                   {**tree, "w1": np.zeros((32, 8), np.float32)}):
+        with pytest.raises(ValueError):
+            convert.cost_model_params(broken, "cpu")

@@ -14,8 +14,8 @@ CPU, with the same numpy inputs.
     measurement counts as the reference's, and writes the same provenance
     (the calibration evidence is held to its counts: its residuals are
     float noise apart).
-  * `launch.hub --smoke --refresh`, `launch.train --source auto` (dry
-    run) and the serving surfaces still waiting for item 9b, on the CPU.
+  * `launch.hub --smoke --refresh` (and `--stats` beside a live farm) and
+    `launch.train --source auto` (dry run), on the CPU.
   * The compact-under-reader race: the port's store under readers racing
     five duplicate-and-compact cycles.
 """
@@ -471,10 +471,14 @@ def test_launch_hub_smoke_refresh_on_cpu(tmp_path, capsys):
                             "--torch-device", "cpu"]) == 0
     assert "second get_config: hit=True new_measurements=0" in \
         capsys.readouterr().out
-    assert launch_hub.main(["--stats", "--root", root,
-                            "--torch-device", "cpu"]) == 0
+    # `--stats` beside a live farm on the same root adds its reader columns
+    from repro_torch.hub import HubServer
+    with HubServer(root, readers=1, monitor=False, torch_device="cpu"):
+        assert launch_hub.main(["--stats", "--root", root,
+                                "--torch-device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "tpu_v5e_pro" in out and "item 9b" in out
+    assert "tpu_v5e_pro" in out and "live readers (1 endpoint(s)):" in out
+    assert "farm health: 1/1 alive, respawns=0" in out
     assert launch_hub.main(["--lineage", "--root", root]) == 0
     assert "tpu_v5e_pro: 2 version(s), serving=2" in capsys.readouterr().out
     assert launch_hub.main(["--compact", "--root", root]) == 0
@@ -524,12 +528,6 @@ def test_source_auto_cli(tmp_path, registry_file):
                 str(tmp_path / "hub"), "--dry-run", "--autotune-trials", "4",
                 "--torch-device", "cpu"])
     assert len(t_registry.Registry(registry_file)._data["tpu_lite"]) == 2
-
-
-@pytest.mark.parametrize("argv", [["--serve"], ["--smoke", "--serve"]])
-def test_launch_hub_serve_waits_for_9b(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        launch_hub.main(argv + ["--root", str(tmp_path)])
 
 
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
