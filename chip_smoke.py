@@ -9,7 +9,7 @@ one nvcc each, all started together; holds each kernel against its plain
 PyTorch version on the card over its knob corners, each matmul and
 attention case naming the variant it ran; holds both registered cost
 models (`mlp`, `residual-mlp`) on the card to the CPU (`cost_model_parity`:
-scores, and one training epoch of the residual MLP); then drives twelve
+scores, and one training epoch of the residual MLP); then drives thirteen
 paths through the port's entry points at full width (eleven serving or
 tuning, one training), each with the launch counts set to 0 just before it
 and read just after, and asserts that every GEMM of the three tuning paths
@@ -99,6 +99,35 @@ on the card (fail at step 15, resume from the step-10 checkpoint, the
 final loss within rel 1e-5 of an uninterrupted run), and
 `zoo_train_check` holds each smoke config's loss, gradients and one
 optimizer update on the card to the port on the CPU at float32.
+
+`dist_path` then runs the distribution layer on a one-rank NCCL process
+group (`launch.mesh.init_process_group`, a `file://` rendezvous in the
+script's temporary directory) with the (1, 1) ("data", "model") mesh of
+`make_host_mesh(1)`, on glm4-9b at its published width (d_model 4096, 32
+heads, 2 kv heads, d_ff 13696, vocab 151552, bf16 params, plan fsdp_tp),
+each leg held to the same work without a mesh within |err| <= 1e-4 *
+max|plain| + 1e-4 * |plain| (float32 activations, TF32 off). Train: 4 of
+the 40 layers (2.06 B params, about 16 bytes a param of state with the
+float32 master and moments: the cut one 80 GB card forces), from the
+launcher's objects (`build_training`: AdamW, data at batch 8 x seq 128);
+one step without the mesh, its state copied to the host, then the same
+step from the same seed on the mesh's DTensor state (`init_train_state(
+mesh=...)`): the loss, grad norm and every leaf of the updated state; a
+second step each, timed; then `run_training(mesh=..., profile_kernels=
+True)` for 2 more steps, with the launch counts set to 0 just before it
+and read just after, each probe kernel then held against its plain
+version. Decode: all 40 layers, 4 prompts of 512 tokens, max_len 1024,
+prefill, then 8 greedy steps of plain `make_serve_step` and 8 of
+`make_serve_step(distributed_cache=True, mesh=...)` on the same tokens,
+the cache placed per `decode_state_shardings(seq_shard_threshold=512)`,
+so its sequence dim is sharded on "model": every step's logits, step p50
+of both, and one more step of each under `torch.profiler` (wall time,
+summed host and device self times, the ops that take most of each).
+Compress: `compressed_psum` on the NCCL group over a
+gradient-sized float32 tensor (4096 x 13696) equals
+`simulate_compressed_allreduce` on the same single shard exactly. The
+`dist_path` line gives the world, mesh, plan and backend, params and
+bytes per rank, peak memory, every max difference and the times.
 
 The eleventh path (`hub_path`) tunes RecurrentGemma-2B through the transfer
 hub for a device the store has never seen, tpu_v5e_pro: a temporary hub
@@ -2338,6 +2367,330 @@ def zoo_train_check(torch_device: str) -> list:
     return out
 
 
+DIST_ARCH = "glm4-9b"
+DIST_TRAIN_LAYERS = 4       # of 40: 2.06 B params, ~16 bytes each of state
+DIST_PROMPTS, DIST_PROMPT, DIST_MAX_LEN, DIST_STEPS = 4, 512, 1024, 8
+DIST_TOLERANCE = ("|err| <= 1e-4 * max|plain| + 1e-4 * |plain| (float32 "
+                  "activations, TF32 off)")
+
+
+def dist_err(got, want, what: str) -> float:
+    """max |got - want|, asserted within DIST_TOLERANCE of `want`."""
+    got, want = got.float(), want.float().to(got.device)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = (got - want).abs()
+    tol = 1e-4 * want.abs().max() + 1e-4 * want.abs()
+    assert bool((err <= tol).all()), f"{what}: max err {float(err.max())}"
+    return float(err.max())
+
+
+def local_numel_bytes(tree) -> tuple:
+    """(elements, bytes) this rank holds of a tree of DTensors."""
+    from repro_torch.models.common import tree_leaves
+    locs = [t.to_local() for t in tree_leaves(tree)]
+    return (sum(t.numel() for t in locs),
+            sum(t.numel() * t.element_size() for t in locs))
+
+
+def dist_train_leg(torch_device: str, mesh, modules, tmp: str,
+                   smoke: bool) -> dict:
+    """The train leg of `dist_path` (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.train import build_training, parser
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_train_step, run_training)
+    mm, fa, lru = modules
+    on_card = torch_device != "cpu"
+    ckpt_dir = str(Path(tmp) / "dist_ckpt")
+    args = parser().parse_args(
+        ["--arch", DIST_ARCH, "--steps", "4", "--checkpoint-every", "4",
+         "--checkpoint-dir", ckpt_dir, "--torch-device", torch_device]
+        + (["--smoke"] if smoke else []))
+    run = build_training(args)
+    assert run.mesh is None  # one process: the launcher trains without one
+    cfg = run.model.cfg.replace(num_layers=min(DIST_TRAIN_LAYERS,
+                                               run.model.cfg.num_layers),
+                                activation_dtype="float32")
+    model = build_model(cfg)
+    batches = [next(run.data) for _ in range(2)]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed_step(step, state, batch):
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        return state, m, time.perf_counter() - t0
+
+    # the same two steps without the mesh: step 1 kept on the host
+    state = init_train_state(model, run.opt, args.seed, torch_device)
+    n_params, param_bytes = tree_numel_bytes(state["params"])
+    step = make_train_step(model, run.opt)
+    state, m, plain_s1 = timed_step(step, state, batches[0])
+    plain = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    ref = tree_map(lambda t: t.to("cpu", copy=True), state)
+    state, _, plain_s2 = timed_step(step, state, batches[1])
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    state = init_train_state(model, run.opt, args.seed, torch_device,
+                             mesh=mesh)
+    local_params, local_bytes = local_numel_bytes(state["params"])
+    _, state_bytes = local_numel_bytes(state)
+    mstep = make_train_step(model, run.opt, mesh=mesh)
+    state, m, mesh_s1 = timed_step(mstep, state, batches[0])
+    diffs = {k: abs(float(m[k]) - plain[k]) for k in plain}
+    for k in plain:
+        assert diffs[k] <= 2e-4 * abs(plain[k]), (k, float(m[k]), plain[k])
+    leaf_err = 0.0
+    for got, want in zip(tree_leaves(state), tree_leaves(ref)):
+        leaf_err = max(leaf_err, dist_err(got.to_local(), want,
+                                          "updated leaf"))
+    del ref
+    state, _, mesh_s2 = timed_step(mstep, state, batches[1])
+    step_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    # the loop on the mesh, with the kernel probe: steps 3 and 4
+    loop = dataclasses.replace(run.loop, keep_n=1, profile_kernels=True,
+                               log_every=1)
+    logs: list = []
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    t0 = time.perf_counter()
+    state, hist = run_training(model, run.opt, run.data, loop,
+                               seed=args.seed, train_state=state,
+                               log_fn=logs.append, torch_device=torch_device,
+                               mesh=mesh)
+    loop_s = time.perf_counter() - t0
+    launches = {"matmul": mm.matmul.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "rg_lru": lru.rg_lru.launches}
+    by_variant = {"matmul": dict(mm.matmul.launches_by_variant),
+                  "flash_attention": dict(
+                      fa.flash_attention.launches_by_variant)}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    assert [h["step"] for h in hist] == [3, 4], hist
+    assert all(map(lambda x: x == x and abs(x) < float("inf"), losses))
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+    return {
+        "layers": cfg.num_layers, "depth_cut": f"{cfg.num_layers} of 40 "
+        "layers: bf16 params, float32 master and float32 moments are ~16 "
+        "bytes a param", "params": n_params, "param_bytes": param_bytes,
+        "params_per_rank": local_params, "param_bytes_per_rank": local_bytes,
+        "state_bytes_per_rank": state_bytes,
+        "batch": args.batch, "seq": args.seq,
+        "loss": float(m["loss"]), "plain_loss": plain["loss"],
+        "grad_norm": float(m["grad_norm"]),
+        "plain_grad_norm": plain["grad_norm"],
+        "loss_diff": diffs["loss"], "grad_norm_diff": diffs["grad_norm"],
+        "leaf_max_abs_err": leaf_err,
+        "step_s": {"plain": [plain_s1, plain_s2], "mesh": [mesh_s1, mesh_s2]},
+        "step_max_memory_allocated_gb": step_peak,
+        "run_training_seconds": loop_s, "loop_losses": losses,
+        "loop_log": logs, "launches": launches,
+        "launches_by_variant": by_variant,
+        "probe_check": serve_probe_check(cfg, torch_device)}
+
+
+def dist_decode_leg(torch_device: str, mesh, smoke: bool) -> dict:
+    """The decode leg of `dist_path` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import (make_serve_prefill,
+                                              make_serve_step)
+    on_card = torch_device != "cpu"
+    cfg = (get_smoke_config if smoke else get_config)(DIST_ARCH).replace(
+        activation_dtype="float32")
+    prompt, max_len = (16, 32) if smoke else (DIST_PROMPT, DIST_MAX_LEN)
+    model = build_model(cfg)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, torch_device)
+    n_params, param_bytes = tree_numel_bytes(params)
+    dparams = sh.distribute(params, sh.param_shardings(
+        params, model.abstract_params_and_axes()[1], mesh, cfg.sharding_plan))
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (DIST_PROMPTS, prompt)).astype(np.int32),
+        device=torch_device)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(prefill, step, p, tokens=None, place=None):
+        """Prefill, then DIST_STEPS decode steps on `tokens` (default:
+        greedy); returns (state, logits of each, step seconds, tokens)."""
+        st, logits = prefill(p, {"tokens": toks})
+        if place is not None:
+            st = place(st)
+        outs, secs, fed = [logits], [], []
+        for i in range(DIST_STEPS):
+            tok = (tokens[i] if tokens is not None else
+                   torch.argmax(logits, dim=-1).to(torch.int32))
+            sync()
+            t0 = time.perf_counter()
+            st, logits = step(p, st, tok)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            outs.append(logits)
+            fed.append(tok)
+        return st, outs, secs, fed
+
+    def first_k(tree):
+        if "k" in tree:
+            return tree["k"]
+        return next(first_k(v) for v in tree.values()
+                    if isinstance(v, dict) and v)
+
+    def traced(step, p, st, tok) -> dict:
+        """One more decode step under torch.profiler: its wall time, the
+        host's summed self time over the host's events and the device's
+        over the kernels, and the host's ops that take most of each
+        (name, calls, ms; an op's device time is its kernels')."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(p, st, tok)
+            sync()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        def top(key):
+            return [[e.key, e.count, key(e) / 1e3] for e in sorted(
+                host, key=key, reverse=True)[:8] if key(e) > 0]
+        return {"wall_ms": wall * 1e3,
+                "host_self_ms": sum(e.self_cpu_time_total
+                                    for e in host) / 1e3,
+                "device_self_ms": sum(dev_us(e) for e in kernels) / 1e3,
+                "top_host": top(lambda e: e.self_cpu_time_total),
+                "top_device": top(dev_us)}
+
+    specs = model.init_decode_state_specs(DIST_PROMPTS, max_len)
+    shardings = sh.decode_state_shardings(
+        specs, mesh, DIST_PROMPTS, seq_shard_threshold=min(512, max_len))
+    with torch.no_grad():
+        plain_step = make_serve_step(model)
+        pst, plain, plain_secs, fed = run(
+            make_serve_prefill(model, max_len), plain_step, params)
+        plain = [t.cpu() for t in plain]
+        dist_step = make_serve_step(model, distributed_cache=True, mesh=mesh)
+        st, dist, dist_secs, _ = run(
+            make_serve_prefill(model, max_len, mesh=mesh), dist_step,
+            dparams, tokens=fed,
+            place=lambda st: sh.distribute(st, shardings))
+        errs = [dist_err(d.to_local(), w, f"decode logits {i}")
+                for i, (d, w) in enumerate(zip(dist, plain))]
+        trace = {"plain": traced(plain_step, params, pst, fed[-1]),
+                 "distributed_cache": traced(dist_step, dparams, st,
+                                             fed[-1])}
+        del pst
+    # the cache [B, Sc, G, D] (with a leading layers dim in a group) keeps
+    # its sequence dim sharded on "model" through the steps' slot writes
+    from torch.distributed.tensor import Shard
+    k = first_k(st["layers"])
+    model_dim = list(mesh.mesh_dim_names).index("model")
+    assert k.placements[model_dim] == Shard(k.dim() - 3), k.placements
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    del params, dparams, st
+    if on_card:
+        torch.cuda.empty_cache()
+    return {
+        "layers": cfg.num_layers, "params": n_params,
+        "param_bytes": param_bytes, "prompts": DIST_PROMPTS,
+        "prompt": prompt, "max_len": max_len, "steps": DIST_STEPS,
+        "cache_placements": [str(p) for p in k.placements],
+        "prefill_logits_max_abs_err": errs[0],
+        "step_logits_max_abs_err": max(errs[1:]),
+        "step_s_p50": {"plain": statistics.median(plain_secs),
+                       "distributed_cache": statistics.median(dist_secs)},
+        "step_s": {"plain": plain_secs, "distributed_cache": dist_secs},
+        "trace": trace, "max_memory_allocated_gb": peak}
+
+
+def dist_compress_leg(torch_device: str) -> dict:
+    """The compress leg of `dist_path`: compressed_psum on the default
+    group against the simulation on the same single shard."""
+    import torch
+
+    from repro_torch.distributed.compression import (
+        compressed_psum, simulate_compressed_allreduce)
+    gen = torch.Generator(device=torch_device).manual_seed(0)
+    x = torch.randn(4096 * 13696, generator=gen, device=torch_device)
+    e = torch.zeros_like(x)
+    got, new_e = compressed_psum(x, e)
+    want, want_e = simulate_compressed_allreduce([x], [e])
+    assert torch.equal(got, want) and torch.equal(new_e, want_e[0])
+    scale = float(x.abs().max()) / 127
+    err = float((got - x).abs().max())
+    assert err <= scale * 1.01, (err, scale)
+    ms = (time_ms(lambda: compressed_psum(x, e), reps=3, inner=3)
+          if torch_device != "cpu" else None)
+    return {"numel": x.numel(), "equal_to_simulation": True,
+            "max_abs_err_vs_exact": err, "scale": scale, "ms": ms}
+
+
+def drive_dist_path(torch_device: str, modules, tmp: str,
+                    smoke: bool = False) -> dict:
+    """`dist_path` (see the module docstring): a one-rank process group
+    with the device's backend, the (1, 1) host mesh, the three legs, then
+    the group is destroyed. `smoke` takes glm4-9b's smoke config, for a
+    rehearsal on the CPU (gloo)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (backend_for, init_process_group,
+                                         make_host_mesh)
+    t0 = time.perf_counter()
+    init_process_group(torch_device, init_method="file://" + str(
+        Path(tmp) / "dist_rendezvous"), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        out = {"arch": DIST_ARCH, "world": dist.get_world_size(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "backend": dist.get_backend(), "tolerance": DIST_TOLERANCE}
+        assert out["backend"] == backend_for(torch_device), out
+        out["train"] = dist_train_leg(torch_device, mesh, modules, tmp,
+                                      smoke)
+        out["plan"] = "fsdp_tp"
+        out["decode"] = dist_decode_leg(torch_device, mesh, smoke)
+        out["compress"] = dist_compress_leg(torch_device)
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = out["train"]["launches"]
+    out["launches_by_variant"] = out["train"]["launches_by_variant"]
+    out["seconds"] = time.perf_counter() - t0
+    if torch_device != "cpu":
+        out["nvidia_smi"] = nvidia_smi()
+    return out
+
+
 def cost_model_parity(torch_device: str, moses_cfg) -> dict:
     """Both registered cost models at full width score the same on the card
     as on the CPU (TF32 off; max relative difference below 1e-4), and one
@@ -2670,6 +3023,14 @@ def run_phases(torch, tmp: str) -> int:
                    "gradient is above it",
          seconds=time.perf_counter() - t0)
 
+    # the distribution layer on a one-rank NCCL group and a (1, 1) mesh:
+    # glm4-9b's train step, distributed-cache decode and compressed psum,
+    # each against the same work without the mesh
+    torch.cuda.empty_cache()
+    dist_line = drive_dist_path("cuda", (mm, fa, lru), tmp)
+    emit("dist_path", **dist_line)
+    assert min(dist_line["launches"].values()) >= 1, dist_line["launches"]
+
     # path 11: the transfer hub tunes the same model for a device it has
     # never seen (launch.train --source auto), refreshes that device's cost
     # model on the card and launches its winners; then launch.hub's own
@@ -2775,9 +3136,9 @@ def run_phases(torch, tmp: str) -> int:
     # one entry per ported kernel. matmul's times are sums over the first
     # two tuning paths' GEMMs (one launch each); the other two are their one
     # task's in the second. Launches by path: the three tuning paths, then
-    # each serve path's probe and the training path's
+    # each serve path's probe, the training path's and dist_path's
     serve_paths = {"serve": serve, **{f"serve:{a}": z for a, z in zoo.items()},
-                   "train": train}
+                   "train": train, "dist_path": dist_line}
 
     def by_path(name: str) -> dict:
         return {"resnet18": launches[name],

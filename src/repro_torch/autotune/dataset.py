@@ -8,6 +8,7 @@ benchmarks/dataset_stats). PyTorch port of `repro.autotune.dataset`.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -74,3 +75,17 @@ def generate_records(tasks: Sequence[Workload], device: str,
     g = np.asarray(gids, np.int32)
     y = normalize_per_task(raw, g)
     return Records(x=x, y=y, g=g, raw_throughput=raw)
+
+
+def save_records(records: Records, path: str):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, x=records.x, y=records.y, g=records.g,
+                        raw=records.raw_throughput
+                        if records.raw_throughput is not None else
+                        np.zeros(0))
+
+
+def load_records(path: str) -> Records:
+    z = np.load(path)
+    raw = z["raw"] if z["raw"].size else None
+    return Records(x=z["x"], y=z["y"], g=z["g"], raw_throughput=raw)

@@ -1,0 +1,381 @@
+"""Logical-axis -> mesh-axis sharding rules (port of
+`repro.distributed.sharding`).
+
+Plans:
+  tp       : tensor-parallel on the "model" axis; params replicated over data.
+  fsdp_tp  : tp + the params' non-TP dim sharded over the data axes (ZeRO-3
+             style). Optimizer state inherits the param sharding, so it is
+             fully sharded.
+  dp       : batch-only parallelism; every param replicated.
+
+Any logical dim whose size is not divisible by its mesh-axis extent falls back
+to replication (e.g. 6 attention heads on a 16-way model axis).
+
+A spec is the reference's `PartitionSpec` as a tuple, one entry per tensor
+dim: None, an axis name or a tuple of axis names. `spec_for`, `make_rules`
+and the `*_shardings` builders read only the mesh's axis names and sizes,
+so they take a `DeviceMesh` or a plain {name: size} mapping in mesh-dim
+order. `to_placements` turns a spec into DTensor placements, one per mesh
+dim; `distribute` puts a tree of tensors on the mesh by a tree of
+shardings.
+
+`MESH_OPS` are the DTensor forms of the models' layout-dependent
+operations (`models.common.LayoutOps`): the embedding gather
+(`embedding_lookup`), the decode cache's slot write (`write_slot`), the
+stacking of per-layer caches (`stack`), the attention bodies on each
+rank's shards (`on_shards`) and the gathered vocab dim of the logits
+(`replicate_dim`). A mesh's train and serve steps install them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.models.common import PLAIN_OPS, LayoutOps, tree_map
+
+PyTree = Any
+AxisMapping = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[AxisMapping, ...]
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} in mesh-dim order, of a `DeviceMesh` or of a plain
+    mapping."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec over its axis names (`jax.sharding.NamedSharding`'s
+    counterpart)."""
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> tuple:
+        return to_placements(self.spec, self.mesh)
+
+
+def to_placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements, one per mesh dim, for `spec`: Shard(d) on each
+    mesh dim named by tensor dim d's entry, Replicate on the rest. A tensor
+    dim on several axes shards over them in mesh-dim order (outer first),
+    as JAX lays out ("pod", "data")."""
+    names = list(axis_sizes(mesh))
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh-dim "
+                             f"order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """All data-parallel-ish axes present in the mesh (pod composes as DP)."""
+    names = axis_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_axes_for_plan(mesh, plan: str) -> Tuple[str, ...]:
+    """Axes the batch shards over. Under the pure-DP plan the model axis
+    carries batch too (otherwise the model-axis ranks replicate compute)."""
+    axes = data_axes(mesh)
+    if plan == "dp" and "model" in axis_sizes(mesh):
+        axes = axes + ("model",)
+    return axes
+
+
+def make_rules(plan: str, mesh) -> dict:
+    dp = data_axes(mesh)
+    rules = {
+        "vocab": "model",
+        "embed": None,
+        "mlp": "model",
+        "mlp2": None,
+        "heads": "model",
+        "kv_heads": None,     # kv heads < model-axis size for all our GQA archs
+        "head_dim": None,
+        "experts": "model",
+        "expert_mlp": None,
+        "layers": None,
+        "conv": None,
+        None: None,
+    }
+    if plan == "fsdp_tp":
+        rules["embed"] = dp  # ZeRO-3: shard the non-TP dim over data axes
+    elif plan == "dp":
+        rules = {k: None for k in rules}
+    elif plan != "tp":
+        raise ValueError(plan)
+    return rules
+
+
+def _extent(sizes: Dict[str, int], axes: Sequence[str]) -> int:
+    return math.prod(sizes[a] for a in axes)
+
+
+def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]], rules: dict,
+             mesh) -> Spec:
+    """The spec of a tensor of `shape` with logical `axes`, dropping mesh
+    axes that don't divide or repeat."""
+    sizes = axis_sizes(mesh)
+    used: set = set()
+    entries: list = []
+    for dim, ax in zip(shape, axes):
+        mapping: AxisMapping = rules.get(ax, None)
+        if mapping is None:
+            entries.append(None)
+            continue
+        maxes = (mapping,) if isinstance(mapping, str) else tuple(mapping)
+        maxes = tuple(a for a in maxes if a in sizes and a not in used)
+        if not maxes:
+            entries.append(None)
+            continue
+        if dim % _extent(sizes, maxes) != 0:
+            # try progressively smaller prefixes of the axis tuple
+            ok = None
+            for cut in range(len(maxes) - 1, 0, -1):
+                if dim % _extent(sizes, maxes[:cut]) == 0:
+                    ok = maxes[:cut]
+                    break
+            if ok is None:
+                entries.append(None)
+                continue
+            maxes = ok
+        used.update(maxes)
+        entries.append(maxes if len(maxes) > 1 else maxes[0])
+    return tuple(entries)
+
+
+def param_shardings(params: PyTree, axes_tree: PyTree, mesh,
+                    plan: str) -> PyTree:
+    """A NamedSharding tree matching params (meta or concrete leaves)."""
+    rules = make_rules(plan, mesh)
+    return tree_map(lambda p, a: NamedSharding(
+        mesh, spec_for(p.shape, a, rules, mesh)), params, axes_tree)
+
+
+def batch_sharding(mesh, ndim: int, batch_dim: int = 0,
+                   batch_size: Optional[int] = None,
+                   axes: Optional[Tuple[str, ...]] = None) -> NamedSharding:
+    sizes = axis_sizes(mesh)
+    dp = axes if axes is not None else data_axes(mesh)
+    entries: list = [None] * ndim
+    # largest axis prefix that divides the batch (e.g. batch 256 on 512
+    # ranks under the dp plan -> shard over (pod, data), model replicated)
+    while dp:
+        if batch_size is None or batch_size % _extent(sizes, dp) == 0:
+            entries[batch_dim] = dp if len(dp) > 1 else dp[0]
+            break
+        dp = dp[:-1]
+    return NamedSharding(mesh, tuple(entries))
+
+
+def batch_shardings(tree: PyTree, mesh,
+                    axes: Optional[Tuple[str, ...]] = None) -> PyTree:
+    """Shard every leaf of a batch tree along its leading (batch) dim
+    (replicated when the batch does not divide the data axes, e.g.
+    batch=1)."""
+    return tree_map(lambda x: batch_sharding(
+        mesh, len(x.shape), batch_size=x.shape[0] if len(x.shape) else None,
+        axes=axes), tree)
+
+
+def decode_state_shardings(state_specs: PyTree, mesh, batch_size: int,
+                           seq_shard_threshold: int = 8192) -> PyTree:
+    """Shardings for a decode state tree.
+
+    Batch dim -> data axes (when divisible). KV-cache sequence dims with
+    extent >= threshold -> "model" axis (the flash-decoding layout of
+    `repro_torch.distributed.decode_attention`). Structure-aware: leaves
+    under state["layers"]["groups"] carry a leading (layers) dim.
+    """
+    sizes = axis_sizes(mesh)
+    dp = data_axes(mesh)
+    dp_size = _extent(sizes, dp) if dp else 1
+    dp_entry: AxisMapping = (dp if len(dp) > 1 else dp[0]) if dp else None
+    if batch_size % max(dp_size, 1) != 0:
+        dp_entry = None  # e.g. long_500k batch=1: replicate over data axes
+    model_size = sizes.get("model", 1)
+
+    def one(leaf, batch_dim: int):
+        shp = leaf.shape
+        nd = len(shp)
+        entries: list = [None] * nd
+        if nd > batch_dim:
+            entries[batch_dim] = dp_entry
+        for d in range(batch_dim + 1, nd):
+            if shp[d] >= seq_shard_threshold and shp[d] % model_size == 0:
+                entries[d] = "model"
+                break
+        return NamedSharding(mesh, tuple(entries))
+
+    out: dict = {}
+    layers = state_specs["layers"]
+    out_layers: dict = {}
+    for section in ("prefix", "suffix"):
+        out_layers[section] = tree_map(lambda l: one(l, 0),
+                                       layers.get(section, {}))
+    if "groups" in layers:
+        out_layers["groups"] = tree_map(lambda l: one(l, 1),
+                                        layers["groups"])
+    out["layers"] = out_layers
+    out["cur"] = NamedSharding(mesh, (dp_entry,))
+    for k in state_specs:
+        if k not in out:
+            out[k] = tree_map(lambda l: one(l, 0), state_specs[k])
+    return out
+
+
+def replicate_dim(x: DTensor, dim: int) -> DTensor:
+    """x with tensor dim `dim` whole on every rank: a mesh dim that shards
+    it, or holds a pending reduction, is made Replicate; the rest keep
+    their placements."""
+    keep = [Replicate() if p.is_partial() or (isinstance(p, Shard)
+                                             and p.dim == dim) else p
+            for p in x.placements]
+    return x.redistribute(x.device_mesh, keep)
+
+
+def local_shard(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's part of x with `placements` on `mesh`; a plain tensor
+    is taken as replicated (the same values on every rank)."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x.redistribute(mesh, placements).to_local()
+
+
+def embedding_lookup(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """table[tokens] for a DTensor table [V, d], laid out as the tokens'
+    batch shards (tokens [B, ...]; a plain tensor is taken as replicated).
+    Each rank gathers its own tokens' rows from the whole table: the
+    backward of `aten.index` is `aten.index_put`, whose sharding rule
+    fails in some torch releases (2.11: "Shard dim -1 ... must be
+    normalized"). The table's gradient is a partial sum over the ranks
+    that hold different tokens, reduced back onto the table's shards."""
+    mesh = table.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in getattr(tokens, "placements", [Replicate()] * mesh.ndim)]
+    local = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if isinstance(p, Shard) else Replicate()
+                         for p in rows])
+    return DTensor.from_local(local[local_shard(tokens, mesh, rows)], mesh,
+                              rows, run_check=False)
+
+
+def stack(xs) -> torch.Tensor:
+    """torch.stack(xs) along a new leading dim; DTensors on each rank's
+    shards (each laid out as xs[0] first): `aten.stack`'s sharding rule
+    fails in some torch releases (2.11: "list index out of range" on 40
+    replicated caches). Other tensors (the meta tensors of an abstract
+    init, caches the model made itself) stack as on one device."""
+    if not isinstance(xs[0], DTensor):
+        return PLAIN_OPS.stack(xs)
+    mesh, placements = xs[0].device_mesh, xs[0].placements
+    local = torch.stack([x.redistribute(mesh, placements).to_local()
+                         for x in xs])
+    return DTensor.from_local(
+        local, mesh, [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                      for p in placements], run_check=False)
+
+
+def on_shards(fn, q: DTensor, k: DTensor, v: DTensor, rows=(),
+              q_heads: int = 2, **kw) -> DTensor:
+    """fn(q, k, v, *rows, **kw) on each rank's shards of DTensor inputs (a
+    mesh's train or serve step), its output [B, ..., H, Dv] a DTensor laid
+    out as q. q keeps the mesh dims that shard its batch dim (0) or, where
+    the kv heads divide them, its heads dim (`q_heads`; k and v then shard
+    their kv heads, dim 2, alike, so each rank's query heads meet their
+    own groups); every other mesh dim is replicated, and k, v and `rows`
+    ([B, ...]: positions) follow q's batch dims. A layout choice: the
+    chunked einsums fold the batch and head dims into one, and DTensor's
+    planner takes minutes an op on such a dim sharded over three mesh
+    axes. Plain inputs (tensors the model made itself) go to fn as they
+    are."""
+    if not isinstance(q, DTensor):
+        return PLAIN_OPS.on_shards(fn, q, k, v, rows, q_heads, **kw)
+    mesh = q.device_mesh
+    G = k.shape[2]
+    qp, kvp, rowp = [], [], []
+    for i, p in enumerate(q.placements):
+        batch = isinstance(p, Shard) and p.dim == 0
+        heads = (isinstance(p, Shard) and p.dim == q_heads
+                 and G % mesh.size(i) == 0)
+        qp.append(p if batch or heads else Replicate())
+        kvp.append(p if batch else Shard(2) if heads else Replicate())
+        rowp.append(p if batch else Replicate())
+
+    out = fn(local_shard(q, mesh, qp), local_shard(k, mesh, kvp),
+             local_shard(v, mesh, kvp),
+             *(local_shard(r, mesh, rowp) for r in rows), **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def write_slot(cache: DTensor, slot: torch.Tensor,
+               value: torch.Tensor) -> DTensor:
+    """A copy of the DTensor `cache` [B, Sc, ...] with row b's slot[b]
+    set to value[b]: the advanced-index write of a decode step, which has
+    no DTensor sharding rule. Only the rank whose shard holds (b, slot[b])
+    writes it; placements other than a shard of the batch or the sequence
+    dim are first replicated. A plain cache (one the model made itself,
+    such as a prefill's positions) is written as on one device."""
+    if not isinstance(cache, DTensor):
+        return PLAIN_OPS.write_slot(cache, slot, value)
+    mesh = cache.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+            for p in cache.placements]
+    cache = cache.redistribute(mesh, keep)
+    rows = [p if p == Shard(0) else Replicate() for p in keep]
+
+    local = cache.to_local().clone()
+    # this shard's first sequence slot: the mesh dims that shard dim 1
+    # split it in turn, outer first, into chunks of ceil(size / k)
+    lo, size, coord = 0, cache.shape[1], mesh.get_coordinate()
+    for i, p in enumerate(keep):
+        if p == Shard(1):
+            size = -(-size // mesh.size(i))
+            lo += coord[i] * size
+    n = local.shape[1]
+    slot_l = local_shard(slot, mesh, rows).long()
+    val_l = local_shard(value, mesh, rows).to(local.dtype)
+    inside = (slot_l >= lo) & (slot_l < lo + n)
+    b = torch.arange(local.shape[0], device=local.device)
+    at = torch.where(inside, slot_l - lo, 0)
+    mask = inside.reshape(-1, *([1] * (val_l.dim() - 1)))
+    local[b, at] = torch.where(mask, val_l, local[b, at])
+    return DTensor.from_local(local, mesh, keep, run_check=False,
+                              shape=cache.shape, stride=cache.stride())
+
+
+# The models' layout-dependent operations on a mesh's DTensors, installed
+# by the train and serve steps under a mesh (`models.common.use_layout`).
+MESH_OPS = LayoutOps(take_rows=embedding_lookup, write_slot=write_slot,
+                     stack=stack, on_shards=on_shards,
+                     whole_dim=replicate_dim)
+
+
+def distribute(tree: PyTree, shardings: PyTree) -> PyTree:
+    """Each leaf on its sharding's mesh with its placements: a DTensor is
+    redistributed; a plain tensor, which must hold the same values on every
+    rank (the same seed, data or file), is split locally, with no
+    communication and, where a rank keeps the whole tensor, no copy."""
+    def one(x: torch.Tensor, s: NamedSharding):
+        if isinstance(x, DTensor):
+            return x.redistribute(s.mesh, s.placements)
+        return distribute_tensor(x, s.mesh, s.placements,
+                                 src_data_rank=None)
+    return tree_map(one, tree, shardings)

@@ -10,9 +10,8 @@ Every architecture of `ARCH_IDS` serves. The model is initialised from
 serves on it. Whisper's encoder frames and the VLM's frontend embeddings
 (stub frontends) are drawn from the same `RandomState(seed)` before the
 prompts, as the reference draws them, so both packages get the same
-inputs. --production-mesh (a multi-device mesh) raises
-NotImplementedError: the distribution layer is not ported yet (ROADMAP
-Queue 1 item 12).
+inputs. --production-mesh (the (16, 16) mesh) raises
+NotImplementedError: it is not ported yet (ROADMAP Queue 1 item 12b).
 """
 from __future__ import annotations
 
@@ -51,15 +50,15 @@ def main(argv=None):
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported yet (the distribution layer)")
+                    help="the (16, 16) mesh (not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--torch-device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh is not ported yet (ROADMAP Queue 1 item 12: "
-            "the distribution layer); the port serves on one card")
+            "--production-mesh is not ported yet (ROADMAP Queue 1 item "
+            "12b: the production meshes and the dry run)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)

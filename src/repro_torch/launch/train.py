@@ -4,7 +4,7 @@
         --arch recurrentgemma-2b --steps 200 --batch 8 --seq 128 [--smoke] \
         [--autotune tpu_v5e [--source auto [--hub-root DIR]] \
          [--scheduler gradient] [--obs DIR] [--dry-run]] \
-        [--checkpoint-dir DIR] [--torch-device cpu]
+        [--checkpoint-dir DIR] [--torch-device cpu] [--model-parallel N]
 
 Trains the architecture with AdamW (cosine schedule, warmup steps // 20,
 weight decay 0.01) on the synthetic data pipeline through the
@@ -26,9 +26,20 @@ budget allocation, async measurement, draft-then-verify scoring), and --obs
 DIR writes that campaign's telemetry (`events.jsonl`, `campaign.trace.json`) to DIR.
 --dry-run tunes two tasks on a tiny budget and exits before training.
 
-Not ported yet, and raising NotImplementedError: the flags that need more
-than one card (ROADMAP Queue 1 item 12): --production-mesh, --multi-pod,
---model-parallel > 1, --opt epmoe.
+Under `torch.distributed.run` (WORLD_SIZE > 1), or with --model-parallel
+N > 1, every process joins the process group (NCCL on cuda, gloo on the
+CPU; `launch.mesh.init_process_group`) and trains over the ("data",
+"model") host mesh with data = world // N (`launch.mesh.make_host_mesh`):
+the state sharded per the config's plan, the batch over "data", and --opt
+act pins the activations' placements (`distributed.act_sharding`). One
+process with N = 1 trains on one device without a mesh.
+
+    python -m torch.distributed.run --nproc-per-node 2 -m \
+        repro_torch.launch.train --smoke --arch glm4-9b --model-parallel 2 \
+        --torch-device cpu --steps 2
+
+Not ported yet, and raising NotImplementedError (ROADMAP Queue 1 item
+12b): --production-mesh, --multi-pod, --opt epmoe.
 """
 from __future__ import annotations
 
@@ -245,17 +256,16 @@ def parser() -> argparse.ArgumentParser:
                          "trace + metrics snapshot) to DIR; applies to the "
                          "--scheduler gradient autotune path")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="needs more than one card (not ported yet)")
+                    help="the (16, 16) mesh (not ported yet)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="needs more than one card (not ported yet)")
+                    help="the (2, 16, 16) mesh (not ported yet)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="values above 1 need more than one card (not "
-                         "ported yet)")
+                    help="ranks on the host mesh's 'model' axis; it must "
+                         "divide the processes of torch.distributed.run")
     ap.add_argument("--opt", default="act",
-                    help="perf hints: act | none (on one card, pinning the "
-                         "activation shardings changes nothing, so both "
-                         "train the same); epmoe (expert parallelism) needs "
-                         "more than one card and is not ported yet")
+                    help="perf hints under a mesh: act (pin the "
+                         "activations' placements) | none; epmoe (expert "
+                         "parallelism) is not ported yet")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the params and of the data")
     ap.add_argument("--torch-device", default="cuda",
@@ -266,33 +276,56 @@ def parser() -> argparse.ArgumentParser:
 
 @dataclasses.dataclass
 class Training:
-    """What the launcher trains with, built from its flags."""
+    """What the launcher trains with, built from its flags: under a mesh
+    also the mesh and the --opt hints (None without)."""
     model: "Model"
     opt: "AdamW"
     data: Iterator[Dict[str, np.ndarray]]
     loop: "LoopConfig"
+    mesh: object = None
+    hints: object = None
 
 
 def build_training(args: argparse.Namespace) -> Training:
     """The reference launcher's model, AdamW (cosine schedule with warmup
     max(steps // 20, 1), weight decay 0.01, the config's moment dtype, a
-    float32 master copy for bf16 params), data iterator and LoopConfig.
-    Raises NotImplementedError for the flags that need more than one
-    card."""
+    float32 master copy for bf16 params), data iterator and LoopConfig;
+    under torch.distributed.run or --model-parallel > 1, the process group,
+    the host mesh and the reference's --opt act hints. Raises
+    NotImplementedError for the flags not ported yet."""
     from repro_torch.models import build_model
     from repro_torch.train.data import DataConfig, data_iterator
     from repro_torch.train.optimizer import AdamW, AdamWConfig, cosine_schedule
     from repro_torch.train.train_loop import LoopConfig
 
-    multi = [flag for flag, on in (
+    unported = [flag for flag, on in (
         ("--production-mesh", args.production_mesh),
         ("--multi-pod", args.multi_pod),
-        (f"--model-parallel {args.model_parallel}", args.model_parallel > 1),
         ("--opt epmoe", "epmoe" in (args.opt or "").split(","))) if on]
-    if multi:
+    if unported:
         raise NotImplementedError(
-            f"{', '.join(multi)} needs more than one card: the distribution "
-            f"layer is not ported yet (ROADMAP Queue 1 item 12)")
+            f"{', '.join(unported)} is not ported yet (ROADMAP Queue 1 "
+            f"item 12b: expert parallelism, the production meshes and the "
+            f"dry run)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = hints = None
+    if world > 1 or args.model_parallel > 1:
+        if args.model_parallel < 1 or world % args.model_parallel:
+            raise ValueError(
+                f"--model-parallel {args.model_parallel} must divide the "
+                f"{world} processes: run under python -m "
+                f"torch.distributed.run --nproc-per-node <a multiple of it>")
+        from repro_torch.distributed.act_sharding import Hints
+        from repro_torch.distributed.sharding import data_axes
+        from repro_torch.launch.mesh import init_process_group, make_host_mesh
+        init_process_group(args.torch_device)
+        mesh = make_host_mesh(args.model_parallel)
+        if "act" in (args.opt or "").split(","):
+            # the reference's hints, but with the ZeRO-3 gather on: the
+            # port's step computes on each block's gathered weights
+            # (`train_loop.make_train_step`)
+            hints = Hints(mesh, data_axes(mesh), "model", zero3_gather=True,
+                          constrain_activations=True)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = AdamW(AdamWConfig(
         lr=cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps),
@@ -303,7 +336,7 @@ def build_training(args: argparse.Namespace) -> Training:
     loop = LoopConfig(total_steps=args.steps,
                       checkpoint_every=args.checkpoint_every,
                       checkpoint_dir=args.checkpoint_dir)
-    return Training(build_model(cfg), opt, data, loop)
+    return Training(build_model(cfg), opt, data, loop, mesh, hints)
 
 
 def main(argv=None):
@@ -325,9 +358,15 @@ def main(argv=None):
         if args.dry_run:
             log.info("dry-run: autotune path OK; skipping training")
             return
+    from repro_torch.distributed.act_sharding import use_hints
     from repro_torch.train.train_loop import run_training
-    _, hist = run_training(run.model, run.opt, run.data, run.loop,
-                           seed=args.seed, torch_device=args.torch_device)
+    with use_hints(run.hints):
+        _, hist = run_training(run.model, run.opt, run.data, run.loop,
+                               seed=args.seed, torch_device=args.torch_device,
+                               mesh=run.mesh)
+    if run.mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     if not hist:
         print(f"nothing to train: the checkpoint in {args.checkpoint_dir} "
               f"is at step {args.steps} or later")

@@ -12,8 +12,13 @@ KV cache, cross attention (its K/V from an encoder or a frontend, built
 once at prefill, with the Llama-3.2-Vision tanh gate) and DeepSeek's MLA
 (a compressed latent KV cache, absorbed-form decode).
 
-The partial decode and its LSE combine belong to the distribution layer,
-which is not ported (ROADMAP Queue 1 item 12).
+Also the partial decode and its LSE combine across a process group, the
+per-rank body of the sequence-sharded decode
+(`repro_torch.distributed.decode_attention`): `attention_decode` takes an
+`attend_fn` in place of `decode_attend`. The attention bodies and the
+cache's slot write go through `common.layout()`, whose forms a mesh's step
+sets. MLA's distributed decode is not ported yet (ROADMAP Queue 1 item
+12b).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamBuilder, apply_rope
+from repro_torch.distributed.act_sharding import constrain
+from repro_torch.models.common import ParamBuilder, apply_rope, layout
 
 NEG_INF = -1e30
 
@@ -94,8 +100,17 @@ def blocked_attention(
     """Flash-style blocked attention with online softmax. Returns [B, Sq, H, Dv].
 
     kind="sliding" attends to positions (t-window, t] (Mistral semantics).
-    kv_len masks out padded kv positions >= kv_len.
+    kv_len masks out padded kv positions >= kv_len. The body runs through
+    `layout().on_shards` (under a mesh, on each rank's shards).
     """
+    return layout().on_shards(_blocked_attention, q, k, v, kind=kind,
+                              window=window, q_offset=q_offset,
+                              chunk_q=chunk_q, chunk_kv=chunk_kv,
+                              scale=scale, kv_len=kv_len)
+
+
+def _blocked_attention(q, k, v, kind, window, q_offset, chunk_q, chunk_kv,
+                       scale, kv_len):
     B, Sq, H, D = q.shape
     _, Skv, G, _ = k.shape
     Dv = v.shape[-1]
@@ -172,7 +187,32 @@ def decode_attend(
     window: int = 0,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Returns [B, H, Dv]."""
+    """Returns [B, H, Dv]. The body runs through `layout().on_shards`
+    (under a mesh, on each rank's shards)."""
+    return layout().on_shards(_decode_attend, q, k_cache, v_cache,
+                              (kv_positions, cur_pos), q_heads=1,
+                              window=window, scale=scale)
+
+
+def _decode_attend(q, k_cache, v_cache, kv_positions, cur_pos, window,
+                   scale):
+    o, _, l = decode_attend_partial(q, k_cache, v_cache, kv_positions,
+                                    cur_pos, window=window, scale=scale)
+    return (o / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
+
+
+def decode_attend_partial(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_positions: torch.Tensor,
+    cur_pos: torch.Tensor,
+    window: int = 0,
+    scale: Optional[float] = None,
+):
+    """Partial (un-normalized) decode attention for LSE combining across
+    sequence shards: returns (o_partial [B,H,Dv], m [B,H], l [B,H]), all
+    float32."""
     B, H, D = q.shape
     G = k_cache.shape[2]
     R = H // G
@@ -185,14 +225,29 @@ def decode_attend(
     if window > 0:
         valid = valid & (kv_positions > cur_pos[:, None] - window)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    p = torch.where(m == NEG_INF, 0.0, p)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    p = torch.where((m == NEG_INF)[..., None], 0.0, p)
     l = p.sum(dim=-1)
-    pv = torch.einsum("bgrk,bkgd->bgrd", p.to(v_cache.dtype).float(),
-                      v_cache.float())
-    out = pv / torch.where(l == 0.0, 1.0, l)[..., None]
-    return out.reshape(B, H, -1).to(q.dtype)
+    o = torch.einsum("bgrk,bkgd->bgrd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, H, -1), m.reshape(B, H), l.reshape(B, H)
+
+
+def combine_partials(o, m, l, group):
+    """LSE-combine flash-decoding partials across the ranks of `group` (the
+    "model" axis's process group): all_reduce MAX of the running max, then
+    all_reduce SUM of the rescaled sums and outputs."""
+    import torch.distributed as dist
+    g_max = m.clone()
+    dist.all_reduce(g_max, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - g_max)
+    l_sum = l * corr
+    dist.all_reduce(l_sum, op=dist.ReduceOp.SUM, group=group)
+    o_sum = o * corr[..., None]
+    dist.all_reduce(o_sum, op=dist.ReduceOp.SUM, group=group)
+    denom = torch.where(l_sum == 0.0, 1.0, l_sum)
+    return o_sum / denom[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +283,9 @@ def _qkv(p, cfg, x, kv_src=None):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dgk->bsgk", kv_src, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dgk->bsgk", kv_src, p["wv"].to(x.dtype))
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, None, None)
+    v = constrain(v, "dp", None, None, None)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
@@ -315,11 +373,12 @@ def attention_prefill(p, cfg, x, positions, cache_len: int,
 
 
 def attention_decode(p, cfg, x, cache, cur_pos,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, attend_fn=None):
     """One-token decode. x: [B, 1, d]; cache k/v: [B, Sc, G, D], pos [B, Sc];
     cur_pos [B]. Writes the new token at slot cur_pos % Sc (ring semantics)
-    into copies of the cache tensors; the given cache is left as it was."""
-    B = x.shape[0]
+    into copies of the cache tensors; the given cache is left as it was.
+    attend_fn lets the distributed runtime substitute seq-sharded
+    attention."""
     Sc = cache["k"].shape[1]
     q, k, v = _qkv(p, cfg, x)
     if cfg.use_rope:
@@ -327,17 +386,14 @@ def attention_decode(p, cfg, x, cache, cur_pos,
         q = apply_rope(q, pos2, cfg.rope_theta)
         k = apply_rope(k, pos2, cfg.rope_theta)
     slot = (cur_pos % Sc).long()
-    bidx = torch.arange(B, device=x.device)
-    k_cache = cache["k"].clone()
-    v_cache = cache["v"].clone()
-    pos_cache = cache["pos"].clone()
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    pos_cache[bidx, slot] = cur_pos.to(torch.int32)
+    write = layout().write_slot
+    k_cache = write(cache["k"], slot, k[:, 0])
+    v_cache = write(cache["v"], slot, v[:, 0])
+    pos_cache = write(cache["pos"], slot, cur_pos)
     if window is None:
         window = _config_window(cfg)
-    o = decode_attend(q[:, 0], k_cache, v_cache, pos_cache, cur_pos,
-                      window=window)
+    fn = attend_fn or decode_attend
+    o = fn(q[:, 0], k_cache, v_cache, pos_cache, cur_pos, window=window)
     y = _out_proj(p, o[:, None])
     return y, {"k": k_cache, "v": v_cache, "pos": pos_cache}
 
@@ -452,18 +508,14 @@ def mla_decode(p, cfg, x, cache, cur_pos):
     latent cache directly; the latent context goes through wv_b. Writes the
     new token at slot cur_pos % Sc into copies of the cache tensors."""
     m = cfg.mla
-    B = x.shape[0]
     Sc = cache["c_kv"].shape[1]
     q_nope, q_rope, c_kv_new, k_rope_new = mla_latents(
         p, cfg, x, cur_pos[:, None])
     slot = (cur_pos % Sc).long()
-    bidx = torch.arange(B, device=x.device)
-    c_cache = cache["c_kv"].clone()
-    r_cache = cache["k_rope"].clone()
-    pos_cache = cache["pos"].clone()
-    c_cache[bidx, slot] = c_kv_new[:, 0].to(c_cache.dtype)
-    r_cache[bidx, slot] = k_rope_new[:, 0, 0].to(r_cache.dtype)
-    pos_cache[bidx, slot] = cur_pos.to(torch.int32)
+    write = layout().write_slot
+    c_cache = write(cache["c_kv"], slot, c_kv_new[:, 0])
+    r_cache = write(cache["k_rope"], slot, k_rope_new[:, 0, 0])
+    pos_cache = write(cache["pos"], slot, cur_pos)
 
     # absorb: q_eff[b,h,r] = q_nope . wk_b -> score against the latent
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"].to(x.dtype))

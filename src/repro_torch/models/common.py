@@ -10,16 +10,32 @@ keys, so the values differ from the reference's for the same seed (the
 parity tests carry the reference's params over with
 `repro_torch.core.convert.model_params`).
 
-The reference's `constrain` (activation sharding) is the identity on one
-card and is not ported.
+Under a mesh the leaves are DTensors, and `apply_mlp` pins its
+activations' placements when the launcher set hints
+(`repro_torch.distributed.act_sharding.constrain`; without hints, or on a
+plain tensor, the identity). The axes trees (`is_axes_leaf`, `map_axes`,
+`stack_axes`) feed the sharding rules.
+
+`LayoutOps` holds the few operations whose form depends on where the
+tensors live: the embedding gather, the decode cache's slot write, the
+stacking of per-layer trees, the attention body and the gathering of a
+sharded dim. The models call them through `layout()`. Their defaults are
+the one-device forms; a mesh's step installs the DTensor forms of
+`repro_torch.distributed.sharding` for its duration (`use_layout`), so
+the models hold no knowledge of how a mesh lays tensors out.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+import threading
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.act_sharding import constrain
 
 PyTree = Any
 
@@ -133,10 +149,94 @@ class ParamBuilder:
         return arr
 
 
+def is_axes_leaf(x) -> bool:
+    """Leaves of an *axes tree* are tuples of axis names (str | None)."""
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str)
+                                        for e in x)
+
+
+def map_axes(fn: Callable, tree: PyTree) -> PyTree:
+    """`fn` over the leaves (tuples of axis names) of an axes tree."""
+    return tree_map(fn, tree)
+
+
+def stack_axes(axes_tree: PyTree) -> PyTree:
+    """Prepend the 'layers' logical axis to every leaf of an axes tree."""
+    return map_axes(lambda a: ("layers",) + tuple(a), axes_tree)
+
+
 def stack_params(trees: Sequence[PyTree]) -> PyTree:
     """Stack a list of identically-structured param trees along a new axis
-    0 (meta tensors stack to meta tensors)."""
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+    0 (meta tensors stack to meta tensors), by `layout().stack`."""
+    stack = layout().stack
+    return tree_map(lambda *xs: stack(xs), *trees)
+
+
+# ---------------------------------------------------------------------------
+# Layout-dependent operations
+# ---------------------------------------------------------------------------
+
+
+def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def _write_slot(cache: torch.Tensor, slot: torch.Tensor,
+                value: torch.Tensor) -> torch.Tensor:
+    out = cache.clone()
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    out[bidx, slot] = value.to(out.dtype)
+    return out
+
+
+def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(xs, dim=0)
+
+
+def _on_shards(fn: Callable, q, k, v, rows=(), q_heads: int = 2, **kw):
+    return fn(q, k, v, *rows, **kw)
+
+
+def _whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutOps:
+    """take_rows(table, ids): table[ids] (the embedding gather).
+    write_slot(cache, slot, value): a copy of cache [B, Sc, ...] with row
+        b's slot[b] set to value[b] (a decode step's cache write).
+    stack(xs): the tensors xs stacked along a new dim 0.
+    on_shards(fn, q, k, v, rows=(), q_heads=2, **kw): an attention body
+        fn(q, k, v, *rows, **kw) -> [B, ..., H, Dv]; q [B, ..., H, D] has
+        its heads at dim `q_heads`, k and v [B, S, G, D], rows [B, ...].
+    whole_dim(x, dim): x with dim `dim` whole (the vocab dim of the
+        logits before the gold-logit gather)."""
+    take_rows: Callable = _take_rows
+    write_slot: Callable = _write_slot
+    stack: Callable = _stack
+    on_shards: Callable = _on_shards
+    whole_dim: Callable = _whole_dim
+
+
+PLAIN_OPS = LayoutOps()
+_LAYOUT = threading.local()
+
+
+def layout() -> LayoutOps:
+    """The layout operations in force: the one-device forms unless a step
+    set others (`use_layout`)."""
+    return getattr(_LAYOUT, "ops", PLAIN_OPS)
+
+
+@contextlib.contextmanager
+def use_layout(ops: LayoutOps):
+    prev = layout()
+    _LAYOUT.ops = ops
+    try:
+        yield
+    finally:
+        _LAYOUT.ops = prev
 
 
 # ---------------------------------------------------------------------------
@@ -253,8 +353,10 @@ def apply_mlp(p: PyTree, x: torch.Tensor, act_name: str,
               use_glu: bool) -> torch.Tensor:
     act = activation(act_name)
     h = dense(p["wi"], x)
+    h = constrain(h, *(("dp",) + (None,) * (h.dim() - 2) + ("tp",)))
     if use_glu:
         h = act(h) * dense(p["wg"], x)
     else:
         h = act(h)
-    return dense(p["wo"], h)
+    y = dense(p["wo"], h)
+    return constrain(y, *(("dp",) + (None,) * (y.dim() - 1)))

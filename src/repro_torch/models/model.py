@@ -10,15 +10,22 @@ tensors:
     decode_step(params, state, tokens[B]) -> (state, logits[B, V])
     cast_params(params) -> params with each weight the model only reads at
         the activation dtype cast to it once
+    init_with_axes(seed, torch_device) -> (params, logical-axes tree)
+    init_decode_state_specs(batch, context) -> the decode state's tree as
+        meta tensors (the reference's ShapeDtypeStructs)
 
 Batch keys: tokens int32 [B,S]; the encoder-decoder (whisper) adds
 encoder_embeddings [B, enc_len, frontend_dim] (the stub frontend's frames),
 the VLM frontend_embeddings [B, N_img, frontend_dim]; `loss` also reads
 targets int32 [B,S] and an optional float loss_mask [B,S].
+
+The reference's `input_specs` (the dry run's stand-ins for every input of
+an (arch, shape) cell) is not ported yet (ROADMAP Queue 1 item 12b).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -26,10 +33,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import TorchDevice, resolve_torch_device
+from repro_torch.distributed import act_sharding
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ParamBuilder, apply_norm, dtype_of,
-                                       init_norm, sinusoid_at,
-                                       sinusoidal_positions)
+                                       init_norm, layout, sinusoid_at,
+                                       sinusoidal_positions, tree_map)
 
 PyTree = Any
 
@@ -61,9 +69,15 @@ class Model:
     def init(self, seed: int = 0, torch_device: TorchDevice = "cuda") -> PyTree:
         """Params drawn on `torch_device` from a generator seeded with
         `seed`, in the order the reference builds them."""
+        return self.init_with_axes(seed, torch_device)[0]
+
+    def init_with_axes(self, seed: int = 0,
+                       torch_device: TorchDevice = "cuda"):
+        """(params, axes): `init`'s params and the tree of their logical
+        axis names (tuples, one name or None per dim)."""
         dev = resolve_torch_device(torch_device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return self._build(gen, abstract=False)[0]
+        return self._build(gen, abstract=False)[:2]
 
     def abstract_params_and_axes(self):
         """(meta-device tensor tree, axes tree) without allocating anything."""
@@ -110,7 +124,8 @@ class Model:
         or [B,S] (default 0..S-1) for the sinusoidal absolute positions of
         a config without RoPE (whisper; xLSTM uses none)."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(dtype_of(cfg.activation_dtype))
+        x = layout().take_rows(params["embed"], tokens)
+        x = x.to(dtype_of(cfg.activation_dtype))
         if cfg.family == "hybrid":  # gemma-family embedding scaling
             # the scale rounded to the activation dtype first, as the
             # reference does (50.596 -> 50.5 in bf16)
@@ -162,10 +177,23 @@ class Model:
                 dtype_of(cfg.activation_dtype))
         return extras
 
+    def _gather_outside_stack(self, params):
+        """Under hints with `zero3_gather`, the leaves outside the stack
+        (embedding, norms, lm_head, the encoder) gathered to their TP-only
+        placements (`act_sharding.gather_params`); `stack_forward` gathers
+        the stack's blocks one at a time. Without hints, `params`."""
+        if act_sharding.current() is None:
+            return params
+        axes = _param_axes(self.cfg)
+        top = {k: v for k, v in params.items() if k != "stack"}
+        return {**params, **act_sharding.gather_params(
+            top, {k: axes[k] for k in top})}
+
     # --------------------------------------------------------------- forward
     def forward(self, params, batch):
         """(logits [B, S, V], aux): aux is the MoE blocks' summed load-
         balancing loss (0 without MoE)."""
+        params = self._gather_outside_stack(params)
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -181,7 +209,9 @@ class Model:
         detach them before keeping them past the backward pass."""
         logits, aux = self.forward(params, batch)
         targets = batch["targets"]
-        logits32 = logits.float()
+        # the vocab dim whole before the gold-logit gather (under a mesh
+        # the logits are vocab-sharded)
+        logits32 = layout().whole_dim(logits.float(), logits.dim() - 1)
         logz = torch.logsumexp(logits32, dim=-1)
         gold = logits32.gather(-1, targets[..., None].long())[..., 0]
         mask = batch.get("loss_mask")
@@ -231,6 +261,97 @@ class Model:
         new_state["layers"] = caches
         new_state["cur"] = cur + 1
         return new_state, logits
+
+
+    # ------------------------------------------------------------- specs
+    def init_decode_state_specs(self, batch_size: int, context_len: int):
+        """A tree of meta tensors matching what prefill(context_len)
+        returns (shapes and dtypes, nothing allocated)."""
+        cfg = self.cfg
+        clen = cache_length(cfg, context_len)
+        adt = dtype_of(cfg.activation_dtype)
+        f32, i32 = torch.float32, torch.int32
+
+        def spec(shape, dtype=adt):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        def attn_cache():
+            hd = cfg.resolved_head_dim
+            if cfg.mla is not None:
+                m = cfg.mla
+                return {"c_kv": spec((batch_size, clen, m.kv_lora_rank)),
+                        "k_rope": spec((batch_size, clen,
+                                        m.qk_rope_head_dim)),
+                        "pos": spec((batch_size, clen), i32)}
+            G = cfg.num_kv_heads
+            return {"k": spec((batch_size, clen, G, hd)),
+                    "v": spec((batch_size, clen, G, hd)),
+                    "pos": spec((batch_size, clen), i32)}
+
+        def local_attn_cache():
+            hd = cfg.resolved_head_dim
+            G = cfg.num_kv_heads
+            w = min(cfg.local_window, context_len)
+            return {"k": spec((batch_size, w, G, hd)),
+                    "v": spec((batch_size, w, G, hd)),
+                    "pos": spec((batch_size, w), i32)}
+
+        def cross_cache():
+            hd = cfg.resolved_head_dim
+            G = cfg.num_kv_heads
+            n = cfg.encoder_seq_len or cfg.num_frontend_tokens
+            return {"k": spec((batch_size, n, G, hd)),
+                    "v": spec((batch_size, n, G, hd))}
+
+        def block_cache(kind: str):
+            if kind in ("attention", "moe_attention"):
+                return local_attn_cache() if cfg.attention_kind == "local" \
+                    else attn_cache()
+            if kind == "cross_attention":
+                return cross_cache()
+            if kind == "encdec_attention":
+                return {"self": attn_cache(), "cross": cross_cache()}
+            cw = cfg.conv_width
+            if kind == "recurrent":
+                w = cfg.lru_width or cfg.d_model
+                return {"h": spec((batch_size, w), f32),
+                        "conv": spec((batch_size, cw - 1, w))}
+            if kind == "mlstm":
+                inner = 2 * cfg.d_model
+                nh = cfg.num_heads
+                D = inner // nh
+                return {"C": spec((batch_size, nh, D, D), f32),
+                        "n": spec((batch_size, nh, D), f32),
+                        "m": spec((batch_size, nh), f32),
+                        "conv": spec((batch_size, cw - 1, inner))}
+            if kind == "slstm":
+                d = cfg.d_model
+                return {"c": spec((batch_size, d), f32),
+                        "n": spec((batch_size, d), f32),
+                        "h": spec((batch_size, d), f32),
+                        "m": spec((batch_size, d), f32),
+                        "conv": spec((batch_size, cw - 1, d))}
+            raise ValueError(kind)
+
+        prefix, unit, n_groups, suffix = tfm.stack_plan(cfg)
+        caches: dict = {"prefix": {}, "suffix": {}}
+        for i, kind in enumerate(prefix):
+            caches["prefix"][f"l{i}"] = block_cache(kind)
+        if n_groups:
+            caches["groups"] = {
+                f"b{pos}": tree_map(
+                    lambda s: spec((n_groups, *s.shape), s.dtype),
+                    block_cache(kind))
+                for pos, kind in enumerate(unit)}
+        for i, kind in enumerate(suffix):
+            caches["suffix"][f"l{i}"] = block_cache(kind)
+        return {"layers": caches, "cur": spec((batch_size,), i32)}
+
+
+@functools.lru_cache(maxsize=64)
+def _param_axes(cfg: ModelConfig) -> PyTree:
+    """The logical-axes tree of the config's params."""
+    return Model(cfg).abstract_params_and_axes()[1]
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -9,8 +9,10 @@ Two implementations:
   - "dense_mask": every expert computes every token, masked combine. The
     correctness oracle of the tests (no capacity drops when cf is large).
 
-The reference's "expert_parallel" path (a shard_map over a mesh) belongs to
-the distribution layer, which is not ported (ROADMAP Queue 1 item 12).
+The reference's "expert_parallel" path (a local dispatch with an
+all-to-all over the "model" group) and its pin of the dispatch buffer to
+experts on the "model" axis (under hints with `moe_expert_parallel`) are
+not ported yet (ROADMAP Queue 1 item 12b: expert parallelism).
 """
 from __future__ import annotations
 
@@ -158,5 +160,5 @@ def moe_forward(p, cfg, x, impl: str = "scatter"):
     if impl == "expert_parallel":
         raise NotImplementedError(
             "moe_impl='expert_parallel' is not ported yet (ROADMAP Queue 1 "
-            "item 12: the distribution layer)")
+            "item 12b: expert parallelism)")
     raise ValueError(impl)

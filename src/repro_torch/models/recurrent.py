@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models.common import ParamBuilder, gelu
 
 LRU_C = 8.0
@@ -131,7 +132,7 @@ def init_recurrent_block(b: ParamBuilder, cfg):
 def _branches(p, x):
     b1 = gelu(torch.matmul(x, p["w_branch1"].to(x.dtype)))
     u = torch.matmul(x, p["w_branch2"].to(x.dtype))
-    return b1, u
+    return constrain(b1, "dp", None, "tp"), constrain(u, "dp", None, "tp")
 
 
 def recurrent_block_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:

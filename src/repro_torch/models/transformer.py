@@ -18,6 +18,9 @@ of the config's plan (the whisper encoder).
 
 `stack_forward` runs each prefix and suffix block, and each group, under
 `cfg.remat_policy` (torch.utils.checkpoint in place of jax.checkpoint).
+Under hints with `zero3_gather` it first redistributes the block's DTensor
+params to their TP-only placements (`act_sharding.gather_params` over
+`stack_axes(cfg)`); without hints the params go in as they are.
 
 Blocks read `extras`, as the reference's do: `kv_src` (the cross-attention
 source), `chunk` (the mLSTM chunk, default `cfg.scan_chunk`) and `moe_impl`
@@ -27,14 +30,19 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import functools
+
 import torch
 
+from repro_torch.distributed import act_sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (ParamBuilder, apply_mlp, apply_norm,
-                                       init_mlp, init_norm, stack_params)
+                                       init_mlp, init_norm, layout, map_axes,
+                                       stack_axes as _stack_axes_tree,
+                                       stack_params, use_layout)
 
 PyTree = Any
 
@@ -270,14 +278,17 @@ def block_prefill(p, cfg, kind: str, x, positions, cache_len: int, extras):
 
 
 def block_decode(p, cfg, kind: str, x_t, cache, cur_pos, extras):
-    """x_t: [B, 1, d]. Returns (x_t, new_cache)."""
+    """x_t: [B, 1, d]. Returns (x_t, new_cache). extras["attend_fn"], where
+    given, replaces the decode attention of the self-attention blocks (the
+    sequence-sharded decode, `distributed.decode_attention`)."""
+    attend_fn = extras.get("attend_fn")
     if kind in ("attention", "moe_attention"):
         h = apply_norm(p["ln_attn"], x_t, cfg.norm)
         if cfg.mla is not None:
             y, cache = attn.mla_decode(p["attn"], cfg, h, cache, cur_pos)
         else:
             y, cache = attn.attention_decode(p["attn"], cfg, h, cache,
-                                             cur_pos)
+                                             cur_pos, attend_fn=attend_fn)
         x_t = x_t + y
         return x_t + _ffn(p, cfg, kind, x_t, extras)[0], cache
     if kind == "cross_attention":
@@ -287,7 +298,8 @@ def block_decode(p, cfg, kind: str, x_t, cache, cur_pos, extras):
     if kind == "encdec_attention":
         h = apply_norm(p["ln_self"], x_t, cfg.norm)
         y, self_cache = attn.attention_decode(p["self_attn"], cfg, h,
-                                              cache["self"], cur_pos)
+                                              cache["self"], cur_pos,
+                                              attend_fn=attend_fn)
         x_t = x_t + y
         h = apply_norm(p["ln_cross"], x_t, cfg.norm)
         x_t = x_t + attn.cross_attention_decode(p["cross_attn"], cfg, h,
@@ -342,17 +354,25 @@ def init_stack(b: ParamBuilder, cfg,
         if b.abstract:
             group_trees = group_trees * n_groups
         s.params["groups"] = stack_params(group_trees)
-        s.axes["groups"] = _prepend_layers(gb.axes)
+        s.axes["groups"] = _stack_axes_tree(gb.axes)
         s.float32_read["groups"] = gb.float32_read
     sfx = s.child("suffix")
     for i, kind in enumerate(suffix):
         init_block(sfx.child(f"l{i}"), cfg, kind)
 
 
-def _prepend_layers(axes_tree):
-    if isinstance(axes_tree, dict):
-        return {k: _prepend_layers(v) for k, v in axes_tree.items()}
-    return ("layers",) + tuple(axes_tree)
+@functools.lru_cache(maxsize=64)
+def stack_axes(cfg) -> Dict[str, Any]:
+    """Logical-axes trees for the stack's prefix / group-slice / suffix params
+    (group axes have the leading 'layers' dim stripped). Used by the ZeRO-3
+    just-in-time weight-gather (distributed.act_sharding)."""
+    b = ParamBuilder(None, cfg.param_dtype, abstract=True)
+    init_stack(b, cfg)
+    axes = b.axes["stack"]
+    out = {"prefix": axes.get("prefix", {}), "suffix": axes.get("suffix", {})}
+    if "groups" in axes:
+        out["groups"] = map_axes(lambda a: tuple(a[1:]), axes["groups"])
+    return out
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -371,7 +391,9 @@ def _remat(fn, cfg):
     `_remat`): "none" as is; "full" saves only its inputs and recomputes
     the rest in the backward pass; "dots" also saves the matmul outputs.
     Memory changes, values do not: the recomputation repeats the same ops
-    on the same inputs."""
+    on the same inputs, under the layout ops and hints of the forward
+    pass (the backward pass may run on another thread, the CUDA autograd
+    engine's, which does not see the caller's thread-local contexts)."""
     if cfg.remat_policy == "none":
         return fn
     from torch.utils.checkpoint import (checkpoint,
@@ -382,7 +404,12 @@ def _remat(fn, cfg):
             _dots_policy)
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        ops, hints = layout(), act_sharding.current()
+
+        def in_context(*a):
+            with use_layout(ops), act_sharding.use_hints(hints):
+                return fn(*a)
+        return checkpoint(in_context, *args, use_reentrant=False, **kw)
     return wrapped
 
 
@@ -405,13 +432,24 @@ def stack_forward(params, cfg, x, positions, extras,
     sp = params["stack"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def one_block(kind):
+    # under hints, each block's (each group's) params are gathered inside
+    # its remat region, so the backward pass gathers them again rather than
+    # keeping them (the encoder's stack is gathered whole by the model)
+    saxes = (stack_axes(cfg) if kinds_override is None
+             and act_sharding.current() is not None else None)
+
+    def one_block(kind, section, i):
         def f(p_blk, x, aux):
+            if saxes is not None:
+                p_blk = act_sharding.gather_params(p_blk,
+                                                   saxes[section][f"l{i}"])
             x, a = block_forward(p_blk, cfg, kind, x, positions, extras)
             return x, aux if a is None else aux + a
         return _remat(f, cfg)
 
     def group_body(gp, x, aux):
+        if saxes is not None:
+            gp = act_sharding.gather_params(gp, saxes["groups"])
         for pos, kind in enumerate(unit):
             x, a = block_forward(gp[f"b{pos}"], cfg, kind, x, positions,
                                  extras)
@@ -419,13 +457,13 @@ def stack_forward(params, cfg, x, positions, extras,
         return x, aux
 
     for i, kind in enumerate(prefix):
-        x, aux = one_block(kind)(sp["prefix"][f"l{i}"], x, aux)
+        x, aux = one_block(kind, "prefix", i)(sp["prefix"][f"l{i}"], x, aux)
     if n_groups:
         body = _remat(group_body, cfg)
         for gp in _groups(sp["groups"], n_groups):
             x, aux = body(gp, x, aux)
     for i, kind in enumerate(suffix):
-        x, aux = one_block(kind)(sp["suffix"][f"l{i}"], x, aux)
+        x, aux = one_block(kind, "suffix", i)(sp["suffix"][f"l{i}"], x, aux)
     return x, aux
 
 

@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models.common import ParamBuilder, apply_norm, gelu, silu
 from repro_torch.models.recurrent import (conv1d_causal, conv1d_decode,
                                           init_conv1d)
@@ -214,8 +215,9 @@ def _mlstm_out(p, h, c_act, g):
 
 
 def _up(p, x):
-    return (torch.matmul(x, p["w_up"].to(x.dtype)),
-            torch.matmul(x, p["w_gate"].to(x.dtype)))
+    u = torch.matmul(x, p["w_up"].to(x.dtype))
+    g = torch.matmul(x, p["w_gate"].to(x.dtype))
+    return constrain(u, "dp", None, "tp"), constrain(g, "dp", None, "tp")
 
 
 def mlstm_block_forward(p, cfg, x, chunk: int = 256):

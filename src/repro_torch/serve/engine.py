@@ -7,11 +7,16 @@ prefill boundary. Per-slot positions (`cur` is per-sequence) make mixed-age
 batches correct. Prompts of a wave are left-padded with token 0 to a common
 length, with no mask, as in the reference.
 
-One card: there is no mesh argument, and the engine runs where its params
-lie. It casts the params once, at construction, to what the model reads
-(`Model.cast_params`: the projections, the embedding and the tied logits at
-the activation dtype), where the reference casts each weight on every call;
-the values are the same.
+Without a mesh the engine runs where its params lie. With `mesh` (a
+`DeviceMesh`; every rank makes its own engine with the same requests) the
+params may be DTensors, prefill and decode run under the mesh
+(`train_loop.make_serve_prefill`/`make_serve_step`), and
+`distributed_cache=True` decodes against a KV cache sequence-sharded on
+the "model" axis; it needs the mesh. The engine casts the params once, at
+construction, to what the model reads (`Model.cast_params`: the
+projections, the embedding and the tied logits at the activation dtype),
+where the reference casts each weight on every call; the values are the
+same.
 
 `extra_batch` (numpy arrays: whisper's `encoder_embeddings`, the VLM's
 `frontend_embeddings`) goes onto the params' device once, at construction,
@@ -60,10 +65,12 @@ class Engine:
     def __init__(self, model: Model, params, max_len: int = 512,
                  batch_slots: int = 8, distributed_cache: bool = False,
                  extra_batch: Optional[Dict[str, Any]] = None, seed: int = 0,
-                 device: str = "tpu_v5e", profile_kernels: bool = False):
+                 device: str = "tpu_v5e", profile_kernels: bool = False,
+                 mesh=None):
         self.model = model
         self.params = model.cast_params(params)
-        self.torch_device = params["embed"].device
+        self.torch_device = (torch.device(mesh.device_type) if mesh
+                             is not None else params["embed"].device)
         self.max_len = max_len
         self.batch_slots = batch_slots
         self.extra_batch = {k: torch.as_tensor(np.asarray(v),
@@ -72,13 +79,17 @@ class Engine:
         self.device = device
         self.profile_kernels = profile_kernels
         self._profiled = False
-        self._prefill = make_serve_prefill(model, max_len=max_len)
+        self._prefill = make_serve_prefill(model, max_len=max_len, mesh=mesh)
         self._step = make_serve_step(model,
-                                     distributed_cache=distributed_cache)
+                                     distributed_cache=distributed_cache,
+                                     mesh=mesh)
         self._gen = torch.Generator(device=self.torch_device).manual_seed(
             seed)
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
+        from repro_torch.distributed.act_sharding import is_dtensor
+        if is_dtensor(logits):  # a mesh's logits, whole on every rank
+            logits = logits.full_tensor()
         pick = torch.argmax(logits, dim=-1)
         if (temps > 0).any():
             t = torch.as_tensor(np.maximum(temps, 1e-6),

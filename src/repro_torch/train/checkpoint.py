@@ -15,8 +15,11 @@ each key written `['key']`, joined by "/" ("['params']/['embed']"). bf16
 dtype in meta.
 
 The copy to host memory is synchronous; with async_save only the file
-writes go to a thread. The reference's elastic restore onto another mesh
-becomes a restore onto a given torch device.
+writes go to a thread. A DTensor leaf (a mesh's train state) is gathered
+whole one leaf at a time, and only rank 0 of the process group copies it
+to the host and writes; `wait` holds every rank until the write is done. `restore` takes a tree of
+shardings (`distributed.sharding`) to place each leaf on a mesh, which may
+differ from the one that saved it: the reference's elastic restore.
 """
 from __future__ import annotations
 
@@ -69,12 +72,41 @@ def _unflatten_like(like: PyTree, leaves: list) -> PyTree:
     return walk(like)
 
 
+def _multi_rank() -> bool:
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the group, or a
+    process outside one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy of `t` for np.save, bf16 and float8 as their bits. A
     copy even of a CPU tensor: the optimizer writes params in place while
     an async save may still be writing them."""
     t = t.detach().to("cpu", copy=True)
     return t.view(_VIEW_AS.get(t.dtype, t.dtype)).numpy()
+
+
+def _host_leaves(leaves: list) -> Optional[list]:
+    """The writer's host copies of `leaves`; None on the other ranks. A
+    DTensor is gathered whole, leaf by leaf (a collective: every rank
+    calls it), and only the writer copies it to host memory, so another
+    rank holds one gathered leaf at a time on its device and none on the
+    host."""
+    from repro_torch.distributed.act_sharding import is_dtensor
+    writes = _writes()
+    host = []
+    for t in leaves:
+        if is_dtensor(t):
+            t = t.full_tensor()
+        if writes:
+            host.append(_to_host(t))
+    return host if writes else None
 
 
 def _from_saved(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
@@ -97,11 +129,14 @@ class CheckpointManager:
             self._thread = None
         # materialize to host memory synchronously, write async
         paths, leaves = flatten_with_paths(tree)
-        host = [_to_host(x) for x in leaves]
+        host = _host_leaves(leaves)
         dtypes = [str(x.dtype).removeprefix("torch.") for x in leaves]
+        path = os.path.join(self.directory, f"step_{step:08d}")
+        if host is None:
+            return path
 
         def _write():
-            final = os.path.join(self.directory, f"step_{step:08d}")
+            final = path
             tmp = final + ".tmp"
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
@@ -123,12 +158,15 @@ class CheckpointManager:
             self._thread.start()
         else:
             _write()
-        return os.path.join(self.directory, f"step_{step:08d}")
+        return path
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _multi_rank():
+            import torch.distributed as dist
+            dist.barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -152,10 +190,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, like: PyTree,
-                torch_device: TorchDevice = "cuda") -> PyTree:
+                torch_device: TorchDevice = "cuda",
+                shardings: Optional[PyTree] = None) -> PyTree:
         """Restore into the structure of `like` (any tree of that shape:
         tensors, meta tensors), each leaf with its stored dtype, on
-        `torch_device`."""
+        `torch_device`; with `shardings` (a tree of
+        `distributed.sharding.NamedSharding` matching `like`), each leaf
+        as a DTensor with its sharding's placements, every rank keeping
+        its shards of what it read."""
         dev = resolve_torch_device(torch_device)
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "meta.json")) as f:
@@ -169,4 +211,8 @@ class CheckpointManager:
             i = stored[p]
             arr = np.load(os.path.join(d, f"arr_{i}.npy"))
             leaves.append(_from_saved(arr, meta["dtypes"][i]).to(dev))
-        return _unflatten_like(like, leaves)
+        tree = _unflatten_like(like, leaves)
+        if shardings is None:
+            return tree
+        from repro_torch.distributed.sharding import distribute
+        return distribute(tree, shardings)

@@ -35,7 +35,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.profile", "repro_torch.hub",
             "repro_torch.hub.store", "repro_torch.hub.serving.index",
             "repro_torch.continual", "repro_torch.continual.replay",
-            "repro_torch.launch.hub"} <= set(mods)
+            "repro_torch.launch.hub", "repro_torch.launch.mesh",
+            "repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.act_sharding",
+            "repro_torch.distributed.decode_attention",
+            "repro_torch.distributed.compression",
+            "repro_torch.core.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
