@@ -125,9 +125,33 @@ of both, and one more step of each under `torch.profiler` (wall time,
 summed host and device self times, the ops that take most of each).
 Compress: `compressed_psum` on the NCCL group over a
 gradient-sized float32 tensor (4096 x 13696) equals
-`simulate_compressed_allreduce` on the same single shard exactly. The
-`dist_path` line gives the world, mesh, plan and backend, params and
-bytes per rank, peak memory, every max difference and the times.
+`simulate_compressed_allreduce` on the same single shard exactly. Ep:
+expert parallelism on dbrx-132b at its published width (d_model 6144,
+16 experts, top-4, d_ff_expert 10752, GLU, plan fsdp_tp), float32 and
+capacity factor E / top_k = 4, so nothing drops: (a) the MoE block alone
+(params from seed 0, x [8, 128, 6144] from seed 1), `moe_forward` under
+`Hints(moe_impl="expert_parallel")` on the (1, 1) mesh against plain
+`moe_forward_scatter` without a mesh, the output, aux and every gradient
+of sum(y^2) + aux, both also against `moe_forward_dense`; (b) the model
+at 2 of its 40 layers (the zoo's cut), 4 prompts of 512 tokens, prefill
+and 8 greedy steps, plainly and expert-parallel on the mesh: every
+step's logits and the step p50 both ways; then `serve.Engine` on the
+mesh under the same hints serves 4 requests with the probe on, the
+launch counts set to 0 just before it and read just after. Pipeline:
+`pipeline_apply` on a one-rank ("pod", "data", "model") = (1, 1, 1)
+mesh, one stage running the train leg's 4 glm4-9b layers over 4
+microbatches of 2 x 128, against the same layers on each microbatch in
+order; `bubble_fraction(1, 4)` = 0. Dryrun: `python -m
+repro_torch.launch.dryrun` for three cells (glm4-9b train_4k on the
+single pod; dbrx-132b train_4k on the multi-pod mesh with --opt
+act,epmoe; deepseek-v3-671b decode_32k on the single pod) as parallel
+subprocesses on the card machine's CPU, meta tensors on a fake 512-rank
+group, under its own torch: each `ok`, its fits check equal to
+`DRYRUN_CELLS`' numbers (computed with the reference's arithmetic), and
+its per-rank FLOPs, unfused bytes, collective bytes and roofline terms
+at the H100's data-sheet rates. The `dist_path` line gives the world,
+mesh, plan and backend, params and bytes per rank, peak memory, every
+max difference and the times.
 
 The eleventh path (`hub_path`) tunes RecurrentGemma-2B through the transfer
 hub for a device the store has never seen, tpu_v5e_pro: a temporary hub
@@ -2656,6 +2680,291 @@ def dist_compress_leg(torch_device: str) -> dict:
             "max_abs_err_vs_exact": err, "scale": scale, "ms": ms}
 
 
+EP_ARCH = "dbrx-132b"
+EP_TOKENS = (8, 128)        # the block alone: x [8, 128, 6144]
+EP_SERVE_LAYERS = 2         # of 40, the zoo's cut (ZOO)
+
+
+def moe_grads(fn, p, x) -> tuple:
+    """(y, aux, grads of sum(y^2) + aux w.r.t. x and every param)."""
+    import torch
+    req = {k: v.detach().requires_grad_() for k, v in p.items()}
+    xr = x.detach().requires_grad_()
+    y, aux = fn(req, xr)
+    keys = sorted(req)
+    grads = torch.autograd.grad((y ** 2).sum() + aux,
+                                [xr] + [req[k] for k in keys])
+    return (y.detach(), aux.detach(),
+            dict(zip(["x"] + keys, grads)))
+
+
+def dist_ep_leg(torch_device: str, mesh, modules, smoke: bool) -> dict:
+    """The ep leg of `dist_path` (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.act_sharding import Hints, use_hints
+    from repro_torch.launch.serve import extra_batch
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.common import ParamBuilder
+    from repro_torch.serve import Engine, Request
+    from repro_torch.train.train_loop import (make_serve_prefill,
+                                              make_serve_step)
+    mm, fa, lru = modules
+    on_card = torch_device != "cpu"
+    base = (get_smoke_config if smoke else get_config)(EP_ARCH)
+    mo = base.moe
+    cf = mo.num_experts / mo.top_k
+    cfg = base.replace(activation_dtype="float32", param_dtype="float32",
+                       moe=dataclasses.replace(mo, capacity_factor=cf))
+    hints = Hints(mesh, ("data",), "model", moe_impl="expert_parallel")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) the block alone at the published width, float32
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    b = ParamBuilder(torch.Generator(device=torch_device).manual_seed(0),
+                     "float32")
+    moe.init_moe(b, cfg)
+    p = b.params["moe"]
+    B, S = (2, 16) if smoke else EP_TOKENS
+    x = torch.randn(B, S, cfg.d_model, device=torch_device,
+                    generator=torch.Generator(device=torch_device)
+                    .manual_seed(1))
+
+    def expert_parallel(p_, x_):
+        with use_hints(hints):
+            return moe.moe_forward(p_, cfg, x_)
+
+    sync()
+    t0 = time.perf_counter()
+    y_sc, aux_sc, g_sc = moe_grads(
+        lambda p_, x_: moe.moe_forward_scatter(p_, cfg, x_), p, x)
+    sync()
+    t1 = time.perf_counter()
+    y_ep, aux_ep, g_ep = moe_grads(expert_parallel, p, x)
+    sync()
+    block_s = {"scatter": t1 - t0,
+               "expert_parallel": time.perf_counter() - t1}
+    errs = {"y": dist_err(y_ep, y_sc, "ep output"),
+            "aux": dist_err(aux_ep, aux_sc, "ep aux")}
+    errs.update({f"grad_{k}": dist_err(g_ep[k], g, f"ep grad {k}")
+                 for k, g in g_sc.items()})
+    del g_sc, g_ep
+    with torch.no_grad():
+        y_dense, _ = moe.moe_forward_dense(p, cfg, x)
+    dense = {"scatter": dist_err(y_sc, y_dense, "scatter vs dense_mask"),
+             "expert_parallel": dist_err(y_ep, y_dense, "ep vs dense_mask")}
+    block_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    n_block = sum(v.numel() for v in p.values())
+    del p, x, y_sc, y_ep, y_dense, b
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) the model at the zoo's cut, served plainly and expert-parallel
+    scfg = base.replace(activation_dtype="float32",
+                        num_layers=min(EP_SERVE_LAYERS, base.num_layers))
+    scfg = scfg.replace(moe=dataclasses.replace(scfg.moe,
+                                                capacity_factor=cf))
+    model = build_model(scfg)
+    params = model.init(0, torch_device)
+    dparams = sh.distribute(params, sh.param_shardings(
+        params, model.abstract_params_and_axes()[1], mesh,
+        scfg.sharding_plan))
+    prompt, max_len = (16, 32) if smoke else (DIST_PROMPT, DIST_MAX_LEN)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, scfg.vocab_size, (DIST_PROMPTS, prompt)).astype(np.int32),
+        device=torch_device)
+
+    def decode(prefill, step, prm, fed=None):
+        st, logits = prefill(prm, {"tokens": toks})
+        outs, secs, used = [logits], [], []
+        for i in range(DIST_STEPS):
+            tok = (fed[i] if fed is not None else
+                   torch.argmax(logits, dim=-1).to(torch.int32))
+            sync()
+            t0 = time.perf_counter()
+            st, logits = step(prm, st, tok)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            outs.append(logits)
+            used.append(tok)
+        return outs, secs, used
+
+    with torch.no_grad():
+        plain, plain_secs, fed = decode(make_serve_prefill(model, max_len),
+                                        make_serve_step(model), params)
+        plain = [t.cpu() for t in plain]
+        with use_hints(hints):
+            ep, ep_secs, _ = decode(
+                make_serve_prefill(model, max_len, mesh=mesh),
+                make_serve_step(model, mesh=mesh), dparams, fed)
+    step_errs = [dist_err(d.to_local(), w, f"ep decode logits {i}")
+                 for i, (d, w) in enumerate(zip(ep, plain))]
+
+    # the engine on the mesh under the same hints, its probe launching
+    # each kernel at the model's shapes
+    reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+    rng = np.random.RandomState(1)
+    engine = Engine(model, dparams, max_len=prompt + 16, batch_slots=4,
+                    extra_batch=extra_batch(scfg, 4, rng), mesh=mesh,
+                    profile_kernels=True)
+    reqs = [Request(prompt=rng.randint(0, scfg.vocab_size, size=prompt)
+                    .astype(np.int32), max_new_tokens=8) for _ in range(4)]
+    t_engine = time.perf_counter()
+    with use_hints(hints):
+        engine.generate(reqs)
+    engine_s = time.perf_counter() - t_engine
+    launches = {"matmul": mm.matmul.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "rg_lru": lru.rg_lru.launches}
+    by_variant = {"matmul": dict(mm.matmul.launches_by_variant),
+                  "flash_attention": dict(
+                      fa.flash_attention.launches_by_variant)}
+    assert all(len(r.out_tokens) == 8 for r in reqs), reqs
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    del params, dparams, engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return {
+        "arch": EP_ARCH, "d_model": cfg.d_model,
+        "experts": mo.num_experts, "top_k": mo.top_k,
+        "d_ff_expert": mo.d_ff_expert, "plan": base.sharding_plan,
+        "block": {"tokens": [B, S], "capacity_factor": cf,
+                  "params": n_block, "max_abs_err": errs,
+                  "vs_dense_mask": dense,
+                  "forward_backward_s": block_s,
+                  "max_memory_allocated_gb": block_peak},
+        "serve": {"layers": scfg.num_layers, "depth_cut": (
+                      f"{base.num_layers} -> {scfg.num_layers} layers "
+                      "(the zoo's cut)"),
+                  "prompts": DIST_PROMPTS, "prompt": prompt,
+                  "steps": DIST_STEPS,
+                  "prefill_logits_max_abs_err": step_errs[0],
+                  "step_logits_max_abs_err": max(step_errs[1:]),
+                  "step_s_p50": {"plain": statistics.median(plain_secs),
+                                 "expert_parallel":
+                                     statistics.median(ep_secs)},
+                  "engine_seconds": engine_s,
+                  "max_memory_allocated_gb": peak},
+        "launches": launches, "launches_by_variant": by_variant}
+
+
+PIPE_MICRO, PIPE_BATCH = 4, (2, 128)
+
+
+def dist_pipeline_leg(torch_device: str, smoke: bool) -> dict:
+    """The pipeline leg of `dist_path` (see the module docstring)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipeline_apply)
+    from repro_torch.launch.mesh import group_device_type
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    on_card = torch_device != "cpu"
+    base = (get_smoke_config if smoke else get_config)(DIST_ARCH)
+    cfg = base.replace(num_layers=min(DIST_TRAIN_LAYERS, base.num_layers),
+                       activation_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, torch_device)
+    mesh = DeviceMesh(group_device_type(), torch.arange(1).reshape(1, 1, 1),
+                      mesh_dim_names=("pod", "data", "model"))
+    b, s = (2, 16) if smoke else PIPE_BATCH
+    gen = torch.Generator(device=torch_device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, b, s),
+                         generator=gen, device=torch_device)
+    positions = torch.arange(s, dtype=torch.int32, device=torch_device)
+
+    def stage_fn(stage, h):
+        assert stage == 0
+        return tfm.stack_forward(params, cfg, h, positions, {})[0]
+
+    with torch.no_grad():
+        x = torch.stack([model._embed(params, t) for t in toks])
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_apply(stage_fn, x, mesh, num_stages=1)
+        if on_card:
+            torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        want = torch.stack([stage_fn(0, h) for h in x])
+    err = dist_err(got, want, "pipeline vs the layers in order")
+    bubble = bubble_fraction(1, PIPE_MICRO)
+    assert bubble == 0.0, bubble
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"arch": DIST_ARCH, "layers": cfg.num_layers,
+            "mesh": {"pod": 1, "data": 1, "model": 1},
+            "microbatches": PIPE_MICRO, "micro_batch": [b, s],
+            "max_abs_err": err, "bubble_fraction": bubble,
+            "seconds": pipe_s}
+
+
+# the dry run's cells under the card machine's torch, each with its fits
+# check (`build_lowerable`'s state_bytes_per_device, computed on a CPU and
+# equal to the reference's)
+DRYRUN_CELLS = (("glm4-9b", "train_4k", "single", "none", 583176200),
+                ("dbrx-132b", "train_4k", "multi", "act,epmoe", 2718064136),
+                ("deepseek-v3-671b", "decode_32k", "single", "none",
+                 6896434464))
+DRYRUN_SMOKE_CELLS = (("xlstm-350m", "long_500k", "single", "none",
+                       1617871428),)
+
+
+def dist_dryrun_leg(tmp: str, smoke: bool) -> dict:
+    """The dryrun leg of `dist_path`: `python -m repro_torch.launch.dryrun`
+    once a cell, the cells in parallel, each on the meta device of a fake
+    512-rank group (no card)."""
+    out_dir = Path(tmp) / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DRYRUN_DIR=str(out_dir), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    cells = DRYRUN_SMOKE_CELLS if smoke else DRYRUN_CELLS
+    procs = [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--opt", cell[3]],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for cell in cells]
+    recs = []
+    try:
+        for (arch, shape, mesh, opt, want_bytes), proc in procs:
+            log = proc.communicate(timeout=900)[0]
+            assert proc.returncode == 0, log[-3000:]
+            mesh_name = ("multi_pod_2x16x16" if mesh == "multi"
+                         else "single_pod_16x16")
+            suffix = "" if opt == "none" else f"__opt-{opt}"
+            rec = json.loads((out_dir / f"{arch}__{shape}__{mesh_name}"
+                              f"{suffix}.json").read_text())
+            assert rec["status"] == "ok", rec
+            assert rec["state_bytes_per_device"] == want_bytes, (
+                arch, rec["state_bytes_per_device"], want_bytes)
+            recs.append({k: rec[k] for k in (
+                "arch", "shape", "mesh", "opt", "status", "chips",
+                "state_bytes_per_device", "param_count", "cost_analysis",
+                "collectives", "model_flops", "rates", "roofline",
+                "memory_analysis", "step_s", "seconds")})
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+    return {"cells": recs, "seconds": time.perf_counter() - t0}
+
+
 def drive_dist_path(torch_device: str, modules, tmp: str,
                     smoke: bool = False) -> dict:
     """`dist_path` (see the module docstring): a one-rank process group
@@ -2681,8 +2990,13 @@ def drive_dist_path(torch_device: str, modules, tmp: str,
         out["plan"] = "fsdp_tp"
         out["decode"] = dist_decode_leg(torch_device, mesh, smoke)
         out["compress"] = dist_compress_leg(torch_device)
+        t1 = time.perf_counter()
+        out["ep"] = dist_ep_leg(torch_device, mesh, modules, smoke)
+        out["ep"]["seconds"] = time.perf_counter() - t1
+        out["pipeline"] = dist_pipeline_leg(torch_device, smoke)
     finally:
         dist.destroy_process_group()
+    out["dryrun"] = dist_dryrun_leg(tmp, smoke)
     out["launches"] = out["train"]["launches"]
     out["launches_by_variant"] = out["train"]["launches_by_variant"]
     out["seconds"] = time.perf_counter() - t0
@@ -3030,6 +3344,7 @@ def run_phases(torch, tmp: str) -> int:
     dist_line = drive_dist_path("cuda", (mm, fa, lru), tmp)
     emit("dist_path", **dist_line)
     assert min(dist_line["launches"].values()) >= 1, dist_line["launches"]
+    assert min(dist_line["ep"]["launches"].values()) >= 1, dist_line["ep"]
 
     # path 11: the transfer hub tunes the same model for a device it has
     # never seen (launch.train --source auto), refreshes that device's cost
@@ -3138,7 +3453,8 @@ def run_phases(torch, tmp: str) -> int:
     # task's in the second. Launches by path: the three tuning paths, then
     # each serve path's probe, the training path's and dist_path's
     serve_paths = {"serve": serve, **{f"serve:{a}": z for a, z in zoo.items()},
-                   "train": train, "dist_path": dist_line}
+                   "train": train, "dist_path": dist_line,
+                   "dist_path:ep": dist_line["ep"]}
 
     def by_path(name: str) -> dict:
         return {"resnet18": launches[name],

@@ -1,9 +1,9 @@
 """The distribution layer on `torch.distributed` (port of
 `repro.distributed`): sharding rules and DTensor placements
 (`sharding`), activation and weight hints (`act_sharding`),
-sequence-sharded decode attention (`decode_attention`) and int8 compressed
-all-reduce (`compression`). Expert parallelism and the pipeline are not
-ported yet (ROADMAP Queue 1 item 12b).
+sequence-sharded decode attention (`decode_attention`), int8 compressed
+all-reduce (`compression`), expert-parallel MoE (`expert_parallel`) and
+the GPipe schedule over "pod" (`pipeline`).
 
 The submodules resolve lazily (PEP 562): the models import `act_sharding`,
 and a process without a mesh must not pay for importing
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["compression", "decode_attention", "sharding"]
+__all__ = ["compression", "decode_attention", "expert_parallel", "pipeline",
+           "sharding"]
 
 
 def __getattr__(name):

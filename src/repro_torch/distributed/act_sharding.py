@@ -18,9 +18,10 @@ make_train_step`: the just-in-time gather on, the activations left to
 propagation); with no context, or on a plain tensor, every helper returns
 its input as it is. The models call these helpers on every block, so this
 module imports `torch.distributed.tensor` (about a second) only once hints
-are set. The reference's expert-parallel knobs (`moe_expert_parallel`,
-`moe_impl`) come with expert parallelism, whose callers (the dry run,
-`--opt epmoe`) are not ported yet (ROADMAP Queue 1 item 12b).
+are set. `moe_impl="expert_parallel"` routes the MoE blocks through
+`distributed.expert_parallel` (the dry run's and the launcher's `--opt
+epmoe`); `moe_expert_parallel` pins the scatter path's dispatch buffer to
+experts on the model axis (`--opt moe`).
 """
 from __future__ import annotations
 
@@ -38,7 +39,9 @@ class Hints:
     def __init__(self, mesh, dp_axes: Tuple[str, ...],
                  tp_axis: Optional[str] = "model",
                  zero3_gather: bool = True,
-                 constrain_activations: bool = True):
+                 constrain_activations: bool = True,
+                 moe_expert_parallel: bool = False,
+                 moe_impl: Optional[str] = None):
         from repro_torch.distributed.sharding import axis_sizes
         names = axis_sizes(mesh)
         self.mesh = mesh
@@ -46,6 +49,8 @@ class Hints:
         self.tp = tp_axis if tp_axis in names else None
         self.zero3_gather = zero3_gather
         self.constrain_activations = constrain_activations
+        self.moe_expert_parallel = moe_expert_parallel
+        self.moe_impl = moe_impl
 
     def axis_size(self, kind: str) -> int:
         from repro_torch.distributed.sharding import axis_sizes

@@ -23,8 +23,11 @@ shardings.
 operations (`models.common.LayoutOps`): the embedding gather
 (`embedding_lookup`), the decode cache's slot write (`write_slot`), the
 stacking of per-layer caches (`stack`), the attention bodies on each
-rank's shards (`on_shards`) and the gathered vocab dim of the logits
-(`replicate_dim`). A mesh's train and serve steps install them.
+rank's shards (`on_shards`), the gathered vocab dim of the logits
+(`replicate_dim`), the MoE router's count of assignments per expert
+(`bincount`) and the MoE dispatch body on each rank's tokens and experts
+(`experts_on_shards`, which expert parallelism also runs through). A
+mesh's train and serve steps install them.
 """
 from __future__ import annotations
 
@@ -361,11 +364,157 @@ def write_slot(cache: DTensor, slot: torch.Tensor,
                               shape=cache.shape, stride=cache.stride())
 
 
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its pending reductions (`Partial`, the output of a
+    row-parallel product) carried out to `Replicate`, the other
+    placements kept. A layout choice: left pending, the residual add
+    after it has DTensor choose a reduce-scatter onto the sequence dim,
+    and the next product's fold of that dim with the batch dim makes a
+    `_StridedShard`, on which DTensor's planner takes minutes an op on a
+    ("pod", "data", "model") mesh. A plain tensor as it is."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def _mesh_dims(mesh, placements, dim: int) -> list:
+    """The mesh dims whose placement shards tensor dim `dim`."""
+    return [i for i, p in enumerate(placements)
+            if type(p) is Shard and p.dim == dim]
+
+
+def _linear_coordinate(mesh, dims) -> int:
+    """This rank's block index along the mesh dims `dims`, outer first
+    (the order in which Shard(d) over several mesh dims lays out dim d)."""
+    coord, out = mesh.get_coordinate(), 0
+    for i in dims:
+        out = out * mesh.size(i) + coord[i]
+    return out
+
+
+def bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 [n], how often each of 0..n-1 occurs in the DTensor ids:
+    each rank counts its shard of the leading dim (DTensor has no sharding
+    rule for `aten.bincount`, and the count has no meta kernel), the
+    partial counts are summed into a replicated DTensor. A plain ids is
+    counted as on one device."""
+    if not isinstance(ids, DTensor):
+        return PLAIN_OPS.bincount(ids, n)
+    mesh = ids.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in ids.placements]
+    local = PLAIN_OPS.bincount(local_shard(ids, mesh, rows), n)
+    return DTensor.from_local(
+        local, mesh, [Partial() if isinstance(p, Shard) else Replicate()
+                      for p in rows], run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
+
+
+def experts_on_shards(fn, xf, weights, idx, wi, wg, wo, *, mesh=None,
+                      token_axes: Optional[Tuple[str, ...]] = None,
+                      expert_axes: Optional[Tuple[str, ...]] = None,
+                      in_order: bool = True):
+    """The MoE dispatch body fn(xf, weights, idx, wi, wg, wo, shard_id,
+    E_loc, offset) -> [T_loc, d] on each rank's tokens and experts (the
+    reference's `shard_map` of expert parallelism, and the mesh form of
+    the scatter path).
+
+    Tokens xf [T, d], routing weights and ids [T, k] go to the rank as its
+    shard of dim 0 over `token_axes` (default: the mesh dims that shard
+    xf's dim 0); the expert weights wi/wg [E, d, f] and wo [E, f, d] as
+    their shard of the experts dim over `expert_axes` (default: the mesh
+    dims that shard wi's dim 0; none where they do not divide E), every
+    other dim whole: an fsdp-sharded embed dim is all-gathered over the
+    data axes here (ZeRO-3), unless the step's hook already gathered it.
+    A mesh dim on both lists keeps the experts and replicates the tokens.
+    shard_id is the rank's block index along the expert axes, E_loc =
+    E / their size. With `in_order`, `offset` [E] counts each expert's
+    assignments from the tokens of the blocks before this rank's (a
+    capacity in the global token order, as on one device); else None.
+
+    The body's output, a partial sum over this rank's experts, leaves as a
+    DTensor `Partial` on the expert axes and is redistributed to xf's
+    placements: one all-reduce. Each local input carries the gradient
+    placements autograd needs: the tokens' and routing weights' partial
+    over the expert axes, the weights' partial over the token axes. Plain
+    inputs are taken as replicated (the same values on every rank), and
+    then the result is a plain tensor."""
+    mesh = mesh if mesh is not None else xf.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if expert_axes is not None:
+        exp = sorted(names.index(a) for a in expert_axes)
+    elif isinstance(wi, DTensor):
+        exp = _mesh_dims(mesh, wi.placements, 0)
+    else:
+        exp = []
+    E = wi.shape[0]
+    if E % math.prod(mesh.size(i) for i in exp):
+        exp = []
+    if token_axes is not None:
+        tok = sorted(names.index(a) for a in token_axes)
+    elif isinstance(xf, DTensor):
+        tok = _mesh_dims(mesh, xf.placements, 0)
+    else:
+        tok = []
+    tok = [i for i in tok if i not in exp]
+
+    def places(on_tok, on_exp):
+        return [on_tok if i in tok else on_exp if i in exp else Replicate()
+                for i in range(mesh.ndim)]
+
+    def local(t, place, grad=None):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        t = t.redistribute(mesh, place)
+        return t.to_local() if grad is None else t.to_local(
+            grad_placements=grad)
+
+    rows, rows_grad = places(Shard(0), Replicate()), places(Shard(0),
+                                                            Partial())
+    w_place, w_grad = places(Replicate(), Shard(0)), places(Partial(),
+                                                            Shard(0))
+    x_l = local(xf, rows, rows_grad)
+    idx_l = local(idx, rows)
+    offset = None
+    if in_order and tok:
+        counts = DTensor.from_local(
+            PLAIN_OPS.bincount(idx_l, E)[None], mesh,
+            places(Shard(0), Replicate()), run_check=False).full_tensor()
+        offset = counts[:_linear_coordinate(mesh, tok)].sum(0).long()
+    y = fn(x_l, local(weights, rows, rows_grad), idx_l,
+           local(wi, w_place, w_grad),
+           None if wg is None else local(wg, w_place, w_grad),
+           local(wo, w_place, w_grad), _linear_coordinate(mesh, exp),
+           E // math.prod(mesh.size(i) for i in exp), offset)
+    out = DTensor.from_local(y, mesh, rows_grad, run_check=False,
+                             shape=xf.shape, stride=xf.stride())
+    if isinstance(xf, DTensor):
+        return out.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                       for p in xf.placements])
+    return out.full_tensor()
+
+
+def _experts_form(fn, xf, weights, idx, wi, wg, wo, in_order=True,
+                  expert_axes=None):
+    """`LayoutOps.experts` under a mesh: DTensor tokens through
+    `experts_on_shards`, plain ones (a model's own tensors) as on one
+    device."""
+    if not isinstance(xf, DTensor):
+        return PLAIN_OPS.experts(fn, xf, weights, idx, wi, wg, wo)
+    return experts_on_shards(fn, xf, weights, idx, wi, wg, wo,
+                             expert_axes=expert_axes, in_order=in_order)
+
+
 # The models' layout-dependent operations on a mesh's DTensors, installed
 # by the train and serve steps under a mesh (`models.common.use_layout`).
 MESH_OPS = LayoutOps(take_rows=embedding_lookup, write_slot=write_slot,
                      stack=stack, on_shards=on_shards,
-                     whole_dim=replicate_dim)
+                     whole_dim=replicate_dim, settle=settle,
+                     bincount=bincount,
+                     experts=_experts_form)
 
 
 def distribute(tree: PyTree, shardings: PyTree) -> PyTree:

@@ -10,8 +10,11 @@ Every architecture of `ARCH_IDS` serves. The model is initialised from
 serves on it. Whisper's encoder frames and the VLM's frontend embeddings
 (stub frontends) are drawn from the same `RandomState(seed)` before the
 prompts, as the reference draws them, so both packages get the same
-inputs. --production-mesh (the (16, 16) mesh) raises
-NotImplementedError: it is not ported yet (ROADMAP Queue 1 item 12b).
+inputs. --production-mesh serves over the (16, 16) mesh
+(`launch.mesh.make_production_mesh`: each of 256 ranks, under
+`torch.distributed.run`, holds its shards of the params, placed per the
+config's sharding plan); in a smaller group it raises RuntimeError, as the
+reference does with fewer devices.
 """
 from __future__ import annotations
 
@@ -50,26 +53,36 @@ def main(argv=None):
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the (16, 16) mesh (not ported yet)")
+                    help="the (16, 16) mesh: 256 ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--torch-device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
     args = ap.parse_args(argv)
+    mesh = None
     if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh is not ported yet (ROADMAP Queue 1 item "
-            "12b: the production meshes and the dry run)")
+        import os
+
+        from repro_torch.launch.mesh import (init_process_group,
+                                             make_production_mesh)
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            init_process_group(args.torch_device)
+        mesh = make_production_mesh()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     params = model.init(args.seed, torch_device=args.torch_device)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as sh
+        params = sh.distribute(params, sh.param_shardings(
+            params, model.abstract_params_and_axes()[1], mesh,
+            cfg.sharding_plan))
 
     rng = np.random.RandomState(args.seed)
     engine = Engine(model, params,
                     max_len=args.prompt_len + args.max_new + 8,
                     batch_slots=args.batch_slots,
                     extra_batch=extra_batch(cfg, args.batch_slots, rng),
-                    seed=args.seed)
+                    seed=args.seed, mesh=mesh)
     reqs = [Request(prompt=rng.randint(0, cfg.vocab_size,
                                        size=args.prompt_len).astype(np.int32),
                     max_new_tokens=args.max_new,

@@ -30,16 +30,17 @@ Under `torch.distributed.run` (WORLD_SIZE > 1), or with --model-parallel
 N > 1, every process joins the process group (NCCL on cuda, gloo on the
 CPU; `launch.mesh.init_process_group`) and trains over the ("data",
 "model") host mesh with data = world // N (`launch.mesh.make_host_mesh`):
-the state sharded per the config's plan, the batch over "data", and --opt
-act pins the activations' placements (`distributed.act_sharding`). One
-process with N = 1 trains on one device without a mesh.
+the state sharded per the config's plan, the batch over "data", --opt act
+pins the activations' placements (`distributed.act_sharding`) and --opt
+epmoe runs the MoE blocks expert-parallel (`distributed.expert_parallel`).
+--production-mesh [--multi-pod] trains over the (16, 16) or (2, 16, 16)
+mesh (`launch.mesh.make_production_mesh`), which raises RuntimeError in a
+group of fewer ranks. One process with N = 1 trains on one device without
+a mesh.
 
     python -m torch.distributed.run --nproc-per-node 2 -m \
         repro_torch.launch.train --smoke --arch glm4-9b --model-parallel 2 \
         --torch-device cpu --steps 2
-
-Not ported yet, and raising NotImplementedError (ROADMAP Queue 1 item
-12b): --production-mesh, --multi-pod, --opt epmoe.
 """
 from __future__ import annotations
 
@@ -256,16 +257,17 @@ def parser() -> argparse.ArgumentParser:
                          "trace + metrics snapshot) to DIR; applies to the "
                          "--scheduler gradient autotune path")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the (16, 16) mesh (not ported yet)")
+                    help="the (16, 16) mesh: 256 ranks")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the (2, 16, 16) mesh (not ported yet)")
+                    help="with --production-mesh, the (2, 16, 16) mesh: "
+                         "512 ranks")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="ranks on the host mesh's 'model' axis; it must "
                          "divide the processes of torch.distributed.run")
     ap.add_argument("--opt", default="act",
                     help="perf hints under a mesh: act (pin the "
-                         "activations' placements) | none; epmoe (expert "
-                         "parallelism) is not ported yet")
+                         "activations' placements) | act,epmoe (also "
+                         "expert-parallel MoE) | none")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the params and of the data")
     ap.add_argument("--torch-device", default="cuda",
@@ -291,41 +293,42 @@ def build_training(args: argparse.Namespace) -> Training:
     max(steps // 20, 1), weight decay 0.01, the config's moment dtype, a
     float32 master copy for bf16 params), data iterator and LoopConfig;
     under torch.distributed.run or --model-parallel > 1, the process group,
-    the host mesh and the reference's --opt act hints. Raises
-    NotImplementedError for the flags not ported yet."""
+    the host mesh and the reference's --opt hints (act, epmoe); under
+    --production-mesh the production mesh (RuntimeError in a smaller
+    group)."""
     from repro_torch.models import build_model
     from repro_torch.train.data import DataConfig, data_iterator
     from repro_torch.train.optimizer import AdamW, AdamWConfig, cosine_schedule
     from repro_torch.train.train_loop import LoopConfig
 
-    unported = [flag for flag, on in (
-        ("--production-mesh", args.production_mesh),
-        ("--multi-pod", args.multi_pod),
-        ("--opt epmoe", "epmoe" in (args.opt or "").split(","))) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)} is not ported yet (ROADMAP Queue 1 "
-            f"item 12b: expert parallelism, the production meshes and the "
-            f"dry run)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     mesh = hints = None
-    if world > 1 or args.model_parallel > 1:
+    if args.production_mesh:
+        from repro_torch.launch.mesh import (init_process_group,
+                                             make_production_mesh)
+        if world > 1:
+            init_process_group(args.torch_device)
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+    elif world > 1 or args.model_parallel > 1:
         if args.model_parallel < 1 or world % args.model_parallel:
             raise ValueError(
                 f"--model-parallel {args.model_parallel} must divide the "
                 f"{world} processes: run under python -m "
                 f"torch.distributed.run --nproc-per-node <a multiple of it>")
-        from repro_torch.distributed.act_sharding import Hints
-        from repro_torch.distributed.sharding import data_axes
         from repro_torch.launch.mesh import init_process_group, make_host_mesh
         init_process_group(args.torch_device)
         mesh = make_host_mesh(args.model_parallel)
-        if "act" in (args.opt or "").split(","):
-            # the reference's hints, but with the ZeRO-3 gather on: the
-            # port's step computes on each block's gathered weights
-            # (`train_loop.make_train_step`)
-            hints = Hints(mesh, data_axes(mesh), "model", zero3_gather=True,
-                          constrain_activations=True)
+    tokens = set((args.opt or "none").split(","))
+    if mesh is not None and tokens & {"act", "epmoe"}:
+        from repro_torch.distributed.act_sharding import Hints
+        from repro_torch.distributed.sharding import data_axes
+        # the reference's hints, but with the ZeRO-3 gather on: the port's
+        # step computes on each block's gathered weights
+        # (`train_loop.make_train_step`)
+        hints = Hints(mesh, data_axes(mesh), "model", zero3_gather=True,
+                      constrain_activations="act" in tokens,
+                      moe_impl="expert_parallel" if "epmoe" in tokens
+                      else None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = AdamW(AdamWConfig(
         lr=cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps),

@@ -1,7 +1,8 @@
 """The LM zoo (port of `repro.models`): attention (GQA, MLA, cross),
-RG-LRU, MoE and xLSTM blocks, stacks, the whisper encoder and the
-top-level Model. All ten configurations build and serve; training waits
-(ROADMAP Queue 1 item 11)."""
-from repro_torch.models.model import Model, build_model, cache_length
+RG-LRU, MoE and xLSTM blocks, stacks, the whisper encoder, the top-level
+Model and the dry run's `input_specs`. All ten configurations build, serve
+and train."""
+from repro_torch.models.model import (Model, build_model, cache_length,
+                                      input_specs)
 
-__all__ = ["Model", "build_model", "cache_length"]
+__all__ = ["Model", "build_model", "cache_length", "input_specs"]

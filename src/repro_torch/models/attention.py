@@ -17,8 +17,8 @@ per-rank body of the sequence-sharded decode
 (`repro_torch.distributed.decode_attention`): `attention_decode` takes an
 `attend_fn` in place of `decode_attend`. The attention bodies and the
 cache's slot write go through `common.layout()`, whose forms a mesh's step
-sets. MLA's distributed decode is not ported yet (ROADMAP Queue 1 item
-12b).
+sets. MLA decodes in latent space without an `attend_fn`, in both
+packages.
 """
 from __future__ import annotations
 
@@ -302,7 +302,8 @@ def _rms_head(x, scale, eps=1e-6):
 
 
 def _out_proj(p, o):
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    y = layout().settle(torch.einsum("bshk,hkd->bsd", o,
+                                     p["wo"].to(o.dtype)))
     if "bo" in p:
         y = y + p["bo"].to(o.dtype)
     return y
@@ -484,7 +485,8 @@ def _mla_attend(p, cfg, x, latents):
         dim=-1)
     o = blocked_attention(q_full, k_full, v, kind="causal",
                           scale=_mla_scale(m))
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return layout().settle(torch.einsum("bshk,hkd->bsd", o,
+                                        p["wo"].to(o.dtype)))
 
 
 def mla_prefill(p, cfg, x, positions, cache_len: int):
@@ -531,5 +533,6 @@ def mla_decode(p, cfg, x, cache, cur_pos):
     ctx_lat = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).float(),
                            c_cache.float()).to(x.dtype)
     o = torch.einsum("bhr,rhk->bhk", ctx_lat, p["wv_b"].to(x.dtype))
-    y = torch.einsum("bhk,hkd->bd", o, p["wo"].to(o.dtype))[:, None]
+    y = layout().settle(torch.einsum("bhk,hkd->bd", o,
+                                     p["wo"].to(o.dtype)))[:, None]
     return y, {"c_kv": c_cache, "k_rope": r_cache, "pos": pos_cache}

@@ -18,9 +18,11 @@ plain tensor, the identity). The axes trees (`is_axes_leaf`, `map_axes`,
 
 `LayoutOps` holds the few operations whose form depends on where the
 tensors live: the embedding gather, the decode cache's slot write, the
-stacking of per-layer trees, the attention body and the gathering of a
-sharded dim. The models call them through `layout()`. Their defaults are
-the one-device forms; a mesh's step installs the DTensor forms of
+stacking of per-layer trees, the attention body, the gathering of a
+sharded dim, the settling of a row-parallel product's partial sums, the
+count of routed assignments per expert and the MoE experts' dispatch
+body. The models call them through `layout()`. Their defaults are the
+one-device forms; a mesh's step installs the DTensor forms of
 `repro_torch.distributed.sharding` for its duration (`use_layout`), so
 the models hold no knowledge of how a mesh lays tensors out.
 """
@@ -201,6 +203,23 @@ def _whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x
 
 
+def _settle(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
+    # an index_add of ones, not torch.bincount, whose output size depends
+    # on the data: it has no meta kernel, and the dry run runs on meta
+    flat = ids.reshape(-1)
+    return torch.zeros(n, dtype=torch.float32, device=ids.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=ids.device))
+
+
+def _experts(fn: Callable, xf, weights, idx, wi, wg, wo, **kw):
+    return fn(xf, weights, idx, wi, wg, wo, 0, wi.shape[0], None)
+
+
 @dataclasses.dataclass(frozen=True)
 class LayoutOps:
     """take_rows(table, ids): table[ids] (the embedding gather).
@@ -211,12 +230,27 @@ class LayoutOps:
         fn(q, k, v, *rows, **kw) -> [B, ..., H, Dv]; q [B, ..., H, D] has
         its heads at dim `q_heads`, k and v [B, S, G, D], rows [B, ...].
     whole_dim(x, dim): x with dim `dim` whole (the vocab dim of the
-        logits before the gold-logit gather)."""
+        logits before the gold-logit gather).
+    settle(y): y with any pending reduction carried out (a row-parallel
+        product's partial sums).
+    bincount(ids, n): float32 [n], how often each of 0..n-1 occurs in ids.
+    experts(fn, xf, weights, idx, wi, wg, wo, in_order=True,
+        expert_axes=None): the MoE dispatch body fn(xf, weights, idx, wi,
+        wg, wo, shard_id, E_loc, offset) -> [T, d] over tokens xf [T, d]
+        with their routing [T, k] and the expert weights [E, ...]; one
+        device runs it as fn(..., 0, E, None). Under a mesh each rank runs
+        it on its tokens and its experts, `offset` [E] counting the
+        assignments of the tokens before its own when `in_order` (a global
+        capacity), and `expert_axes` pins the experts to those mesh
+        axes."""
     take_rows: Callable = _take_rows
     write_slot: Callable = _write_slot
     stack: Callable = _stack
     on_shards: Callable = _on_shards
     whole_dim: Callable = _whole_dim
+    settle: Callable = _settle
+    bincount: Callable = _bincount
+    experts: Callable = _experts
 
 
 PLAIN_OPS = LayoutOps()
@@ -337,7 +371,7 @@ def init_dense(b: ParamBuilder, name: str, in_dim: int, out_dim: int,
 
 
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, w.to(x.dtype))
+    return layout().settle(torch.matmul(x, w.to(x.dtype)))
 
 
 def init_mlp(b: ParamBuilder, d_model: int, d_ff: int, use_glu: bool,

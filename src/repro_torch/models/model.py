@@ -14,24 +14,24 @@ tensors:
     init_decode_state_specs(batch, context) -> the decode state's tree as
         meta tensors (the reference's ShapeDtypeStructs)
 
+`input_specs(cfg, shape)` gives meta tensors for every input of an (arch,
+shape) cell of the dry run.
+
 Batch keys: tokens int32 [B,S]; the encoder-decoder (whisper) adds
 encoder_embeddings [B, enc_len, frontend_dim] (the stub frontend's frames),
 the VLM frontend_embeddings [B, N_img, frontend_dim]; `loss` also reads
 targets int32 [B,S] and an optional float loss_mask [B,S].
-
-The reference's `input_specs` (the dry run's stand-ins for every input of
-an (arch, shape) cell) is not ported yet (ROADMAP Queue 1 item 12b).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.placement import TorchDevice, resolve_torch_device
 from repro_torch.distributed import act_sharding
 from repro_torch.models import transformer as tfm
@@ -356,3 +356,47 @@ def _param_axes(cfg: ModelConfig) -> PyTree:
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# input_specs for the dry-run
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Meta-tensor stand-ins (the reference's ShapeDtypeStructs) for every
+    model input of this (arch, shape).
+
+    train   -> kwargs for train_step(params, batch)
+    prefill -> kwargs for serve_prefill(params, batch)
+    decode  -> kwargs for serve_step(params, state, tokens)
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    adt = dtype_of(cfg.activation_dtype)
+    model = build_model(cfg)
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    def frontend(batch_keys: Dict[str, Any]):
+        if cfg.is_encoder_decoder:
+            batch_keys["encoder_embeddings"] = spec(
+                (B, cfg.encoder_seq_len, cfg.frontend_dim or cfg.d_model),
+                adt)
+        elif cfg.cross_attn_every > 0:
+            batch_keys["frontend_embeddings"] = spec(
+                (B, cfg.num_frontend_tokens, cfg.frontend_dim or cfg.d_model),
+                adt)
+        return batch_keys
+
+    if shape.kind == "train":
+        return {"batch": frontend({"tokens": spec((B, S), i32),
+                                   "targets": spec((B, S), i32)})}
+    if shape.kind == "prefill":
+        return {"batch": frontend({"tokens": spec((B, S), i32)})}
+    if shape.kind == "decode":
+        # the cross caches are inside the layer caches
+        return {"state": model.init_decode_state_specs(B, S),
+                "tokens": spec((B,), i32)}
+    raise ValueError(shape.kind)

@@ -1,18 +1,26 @@
 """Mixture-of-Experts layer (DBRX-style top-k, DeepSeek-V3 shared + routed);
 port of `repro.models.moe`.
 
-Two implementations:
+Implementations:
   - "scatter" (default): capacity-based dispatch. Each (token, rank)
     assignment takes the next free row of its expert's C-row buffer, or the
     drop slot once the expert is full; every expert then runs on its whole
     buffer, and the rows are gathered back and weighted.
   - "dense_mask": every expert computes every token, masked combine. The
     correctness oracle of the tests (no capacity drops when cf is large).
+  - "expert_parallel" under hints whose mesh it runs on
+    (`repro_torch.distributed.expert_parallel`): a local capacity dispatch
+    over each model shard's own experts and one all-reduce over "model";
+    hints with `moe_impl="expert_parallel"` turn "scatter" into it. Without
+    hints it falls to "scatter", as in the reference.
 
-The reference's "expert_parallel" path (a local dispatch with an
-all-to-all over the "model" group) and its pin of the dispatch buffer to
-experts on the "model" axis (under hints with `moe_expert_parallel`) are
-not ported yet (ROADMAP Queue 1 item 12b: expert parallelism).
+The dispatch body is `distributed.expert_parallel._local_dispatch_ffn`, and
+the router's count of assignments per expert and the body run through
+`common.layout()`: on one device over every token and expert, under a
+mesh's step on each rank's tokens and experts, the capacity positions
+still counted in the global token order. That buffer is already the
+placement the reference's `moe_expert_parallel` pin asks for (experts on
+"model"); the hint pins it there even where the weights are replicated.
 """
 from __future__ import annotations
 
@@ -20,9 +28,9 @@ import math
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.models.common import ParamBuilder, activation
+from repro_torch.distributed.act_sharding import current
+from repro_torch.models.common import ParamBuilder, activation, layout
 
 
 def init_moe(b: ParamBuilder, cfg):
@@ -56,7 +64,7 @@ def _router(p, cfg, x_flat):
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balancing auxiliary loss: E * sum_e f_e * P_e
     E = mo.num_experts
-    f = torch.bincount(idx.reshape(-1), minlength=E).float()
+    f = layout().bincount(idx.reshape(-1), E)
     f = f / torch.clamp(f.sum(), min=1.0)
     P = probs.mean(dim=0)
     aux = E * torch.sum(f * P) * mo.aux_loss_coef
@@ -81,7 +89,7 @@ def _shared_ffn(p, cfg, x):
         h = act(h) * torch.matmul(x, p["shared_wg"].to(x.dtype))
     else:
         h = act(h)
-    return torch.matmul(h, p["shared_wo"].to(x.dtype))
+    return layout().settle(torch.matmul(h, p["shared_wo"].to(x.dtype)))
 
 
 def capacity(cfg, tokens: int) -> int:
@@ -94,38 +102,23 @@ def capacity(cfg, tokens: int) -> int:
 def moe_forward_scatter(p, cfg, x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y, aux_loss). Capacity-based scatter dispatch."""
+    from repro_torch.distributed.expert_parallel import _local_dispatch_ffn
     mo = cfg.moe
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
     weights, idx, aux = _router(p, cfg, xf)
-
-    E, k = mo.num_experts, mo.top_k
     C = capacity(cfg, T)
-    # assignment-major order: token t rank r -> row t*k + r
-    a = idx.reshape(T * k)
-    onehot = F.one_hot(a, E).to(torch.int32)
-    pos = torch.cumsum(onehot, dim=0) - onehot  # exclusive cumsum
-    pos_in_expert = pos.gather(1, a[:, None])[:, 0]
-    keep = pos_in_expert < C
-    dest = torch.where(keep, a * C + pos_in_expert,
-                       torch.full_like(a, E * C))  # E*C = drop slot
-    keep_x = keep[:, None].to(x.dtype)
 
-    x_rep = xf.repeat_interleave(k, dim=0)  # [T*k, d] token-major
-    # a kept row's dest is unique, so its sum has one term; only the drop
-    # slot, which is thrown away, takes several
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, dest, x_rep * keep_x)
-    expert_in = buf[: E * C].reshape(E, C, d)
-    expert_out = _expert_ffn(p, cfg, expert_in).reshape(E * C, d)
-    expert_out = torch.cat(
-        [expert_out, torch.zeros((1, d), dtype=expert_out.dtype,
-                                 device=x.device)], dim=0)
+    def body(xf_, w_, i_, wi_, wg_, wo_, shard_id, E_loc, offset):
+        return _local_dispatch_ffn(cfg, xf_, w_, i_, wi_, wg_, wo_, shard_id,
+                                   E_loc, C, offset)
 
-    gathered = expert_out[dest] * (
-        weights.reshape(T * k, 1).to(x.dtype) * keep_x)
-    y = gathered.reshape(T, k, d).sum(dim=1)
+    h = current()
+    pin = h is not None and getattr(h, "moe_expert_parallel", False)
+    y = layout().experts(body, xf, weights, idx, p["wi"], p.get("wg"),
+                         p["wo"], in_order=True,
+                         expert_axes=(h.tp,) if pin and h.tp else None)
     if mo.num_shared_experts > 0:
         y = y + _shared_ffn(p, cfg, xf)
     return y.reshape(B, S, d), aux
@@ -153,12 +146,16 @@ def moe_forward_dense(p, cfg, x: torch.Tensor
 
 
 def moe_forward(p, cfg, x, impl: str = "scatter"):
-    if impl == "scatter":
+    h = current()
+    if impl == "scatter" and h is not None and \
+            getattr(h, "moe_impl", None) == "expert_parallel":
+        impl = "expert_parallel"
+    if impl == "expert_parallel" and h is not None:
+        from repro_torch.distributed.expert_parallel import \
+            moe_forward_expert_parallel
+        return moe_forward_expert_parallel(p, cfg, x, h)
+    if impl in ("scatter", "expert_parallel"):
         return moe_forward_scatter(p, cfg, x)
     if impl == "dense_mask":
         return moe_forward_dense(p, cfg, x)
-    if impl == "expert_parallel":
-        raise NotImplementedError(
-            "moe_impl='expert_parallel' is not ported yet (ROADMAP Queue 1 "
-            "item 12b: expert parallelism)")
     raise ValueError(impl)

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
-from repro_torch.models.common import ParamBuilder, gelu
+from repro_torch.models.common import ParamBuilder, gelu, layout
 
 LRU_C = 8.0
 
@@ -139,7 +139,8 @@ def recurrent_block_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
     b1, u = _branches(p, x)
     u = conv1d_causal(p["conv"], u)
     lru_out = rg_lru_forward(p["lru"], u)
-    return torch.matmul(b1 * lru_out, p["w_out"].to(x.dtype))
+    return layout().settle(torch.matmul(b1 * lru_out,
+                                        p["w_out"].to(x.dtype)))
 
 
 def recurrent_block_prefill(p, cfg, x: torch.Tensor):
@@ -149,7 +150,7 @@ def recurrent_block_prefill(p, cfg, x: torch.Tensor):
     a, gated = _decay_and_input(p["lru"], uc)
     _, h_all = linear_scan(a, gated)
     lru_out = h_all.to(x.dtype)
-    y = torch.matmul(b1 * lru_out, p["w_out"].to(x.dtype))
+    y = layout().settle(torch.matmul(b1 * lru_out, p["w_out"].to(x.dtype)))
     cw = cfg.conv_width
     state = {
         # copies, so the state does not hold the whole sequence's tensors
@@ -166,5 +167,6 @@ def recurrent_block_decode(p, cfg, x_t: torch.Tensor, state):
     b1, u = _branches(p, x_t[:, 0])
     uc, conv_state = conv1d_decode(p["conv"], u, state["conv"])
     lru_out, h = rg_lru_step(p["lru"], uc, state["h"])
-    y = torch.matmul(b1 * lru_out, p["w_out"].to(x_t.dtype))
+    y = layout().settle(torch.matmul(b1 * lru_out,
+                                     p["w_out"].to(x_t.dtype)))
     return y[:, None], {"h": h, "conv": conv_state}

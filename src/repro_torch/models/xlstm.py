@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
-from repro_torch.models.common import ParamBuilder, apply_norm, gelu, silu
+from repro_torch.models.common import (ParamBuilder, apply_norm, gelu, layout,
+                                       silu)
 from repro_torch.models.recurrent import (conv1d_causal, conv1d_decode,
                                           init_conv1d)
 
@@ -211,7 +212,7 @@ def _mlstm_out(p, h, c_act, g):
     """(h + skip * conv branch) * silu(gate branch), projected down."""
     dt = g.dtype
     y = (h + p["skip_scale"].to(dt) * c_act) * silu(g)
-    return torch.matmul(y, p["w_down"].to(dt))
+    return layout().settle(torch.matmul(y, p["w_down"].to(dt)))
 
 
 def _up(p, x):
@@ -329,7 +330,7 @@ def _slstm_ffn(p, cfg, h):
     hn = apply_norm({"scale": p["ffn_norm_scale"]}, h, "rmsnorm")
     f = gelu(torch.matmul(hn, p["ffn_wi"].to(h.dtype)))
     f = f * torch.matmul(hn, p["ffn_wg"].to(h.dtype))
-    return h + torch.matmul(f, p["ffn_wo"].to(h.dtype))
+    return h + layout().settle(torch.matmul(f, p["ffn_wo"].to(h.dtype)))
 
 
 def slstm_block_forward(p, cfg, x):

@@ -68,6 +68,7 @@ class Engine:
                  device: str = "tpu_v5e", profile_kernels: bool = False,
                  mesh=None):
         self.model = model
+        self.mesh = mesh
         self.params = model.cast_params(params)
         self.torch_device = (torch.device(mesh.device_type) if mesh
                              is not None else params["embed"].device)
@@ -110,7 +111,11 @@ class Engine:
                             workloads=model_workloads(self.model.cfg),
                             torch_device=self.torch_device)
         queue = list(requests)
-        with torch.inference_mode():
+        # a mesh's DTensors under no_grad: in torch 2.11, inference mode
+        # fails on a DTensor's views ("Cannot set version_counter for
+        # inference tensor", the stacked groups' unbind)
+        with (torch.no_grad() if self.mesh is not None
+              else torch.inference_mode()):
             while queue:
                 wave = queue[: self.batch_slots]
                 queue = queue[self.batch_slots:]

@@ -325,10 +325,11 @@ def make_serve_prefill(model: Model, max_len: Optional[int] = None,
 
 
 def make_serve_step(model: Model, distributed_cache: bool = False,
-                    mesh=None):
+                    mesh=None, batch_sharded: bool = True):
     """The decode step. distributed_cache=True attends against a KV cache
     sequence-sharded on the mesh's "model" axis (the reference's
-    flash-decoding layout, `distributed.decode_attention`); it needs the
+    flash-decoding layout, `distributed.decode_attention`; its batch dim
+    over the data axes unless `batch_sharded` is False); it needs the
     mesh."""
     if mesh is None:
         if distributed_cache:
@@ -341,7 +342,8 @@ def make_serve_step(model: Model, distributed_cache: bool = False,
     if distributed_cache:
         from repro_torch.distributed.decode_attention import \
             make_distributed_attend_fn
-        extras["attend_fn"] = make_distributed_attend_fn(mesh)
+        extras["attend_fn"] = make_distributed_attend_fn(
+            mesh, batch_sharded=batch_sharded)
 
     def fn(params, state, tokens):
         st = dict(state)

@@ -271,9 +271,10 @@ print("DIST_PATH", json.dumps(out, default=str))
 
 
 def test_chip_smoke_dist_path_rehearses_on_cpu():
-    """chip_smoke.py's dist_path at glm4-9b's smoke size on a one-rank gloo
-    group (a subprocess: the phase joins and leaves a process group); on
-    one rank every leg matches the same work without the mesh."""
+    """chip_smoke.py's dist_path at glm4-9b's (and, for the ep leg,
+    dbrx-132b's) smoke size on a one-rank gloo group (a subprocess: the
+    phase joins and leaves a process group); on one rank every leg matches
+    the same work without the mesh; the dryrun leg runs its smoke cell."""
     code = _REHEARSAL.format(root=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=240)
@@ -289,3 +290,13 @@ def test_chip_smoke_dist_path_rehearses_on_cpu():
     assert decode["step_logits_max_abs_err"] < 1e-4
     assert len(decode["step_s"]["distributed_cache"]) == decode["steps"]
     assert line["compress"]["equal_to_simulation"]
+    # the expert-parallel leg: on one rank, C_loc = C and the all-reduce
+    # is the identity, so the block and its gradients equal scatter's
+    ep = line["ep"]
+    assert set(ep["block"]["max_abs_err"].values()) == {0.0}
+    assert max(ep["block"]["vs_dense_mask"].values()) < 1e-4
+    assert ep["serve"]["step_logits_max_abs_err"] == 0.0
+    assert line["pipeline"]["max_abs_err"] == 0.0
+    assert line["pipeline"]["bubble_fraction"] == 0.0
+    [cell] = line["dryrun"]["cells"]
+    assert cell["status"] == "ok" and cell["chips"] == 256

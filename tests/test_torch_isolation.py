@@ -40,6 +40,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.distributed.act_sharding",
             "repro_torch.distributed.decode_attention",
             "repro_torch.distributed.compression",
+            "repro_torch.distributed.expert_parallel",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
             "repro_torch.core.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -48,6 +51,9 @@ def test_every_module_imports_without_jax_or_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
+        "import torch.distributed as dist\n"
+        "if dist.is_initialized():\n"
+        "    bad.append('a process group joined at import')\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

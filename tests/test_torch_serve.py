@@ -174,6 +174,7 @@ def test_launch_serve_defaults_to_the_card(monkeypatch):
 
 
 def test_launch_serve_production_mesh_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    # the reference's RuntimeError: the (16, 16) mesh needs 256 ranks
+    with pytest.raises(RuntimeError, match="needs 256 devices"):
         t_launch.main(["--arch", ARCH, "--smoke", "--torch-device", "cpu",
                        "--production-mesh"])

@@ -491,17 +491,25 @@ def test_launch_train_builds_the_reference_objects(tmp_path):
 @pytest.mark.parametrize("flags", [["--production-mesh"], ["--multi-pod"],
                                    ["--model-parallel", "2"],
                                    ["--opt", "act,epmoe"]])
-def test_launch_train_multi_card_flags_raise(tmp_path, flags, monkeypatch):
-    # --model-parallel 2 is ported: in one process it raises because 2
-    # does not divide the world of 1 (tests/test_torch_distributed.py runs
-    # it under torch.distributed.run); the rest are item 12b
+def test_launch_train_multi_card_flags_raise(tmp_path, flags, monkeypatch,
+                                            capsys):
+    """In one process: --model-parallel 2 raises because 2 does not divide
+    the world of 1 (tests/test_torch_distributed.py runs it under
+    torch.distributed.run); --production-mesh raises the reference's
+    RuntimeError (256 ranks needed); --multi-pod without
+    --production-mesh and --opt act,epmoe without a mesh change nothing,
+    as in the reference, and the launcher trains on one device."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     if flags[0] == "--model-parallel":
         with pytest.raises(ValueError, match="must divide the 1 processes"):
             t_launch.main(_argv(tmp_path, *flags))
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12b"):
-        t_launch.main(_argv(tmp_path, *flags))
+    if flags[0] == "--production-mesh":
+        with pytest.raises(RuntimeError, match="needs 256 devices"):
+            t_launch.main(_argv(tmp_path, *flags))
+        return
+    t_launch.main(_argv(tmp_path, *flags))
+    assert "final loss:" in capsys.readouterr().out
 
 
 def test_launch_train_defaults_to_the_card(tmp_path, monkeypatch):

@@ -218,11 +218,18 @@ def test_decode_step_drops_extras(jax_params):
 
 
 def test_moe_impl_expert_parallel_raises():
+    """moe_impl="expert_parallel" no longer raises: without hints (no
+    mesh) it falls to the scatter path, as in the reference, bit for bit;
+    an unknown impl still raises."""
     cfg = _cfg(t_smoke, "dbrx-132b")
     p = t_build(cfg).init(0, "cpu")["stack"]["prefix"]["l0"]["moe"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        t_moe.moe_forward(p, cfg, torch.zeros(1, 2, cfg.d_model),
-                          "expert_parallel")
+    x = torch.randn(2, 5, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    ep, ep_aux = t_moe.moe_forward(p, cfg, x, "expert_parallel")
+    sc, sc_aux = t_moe.moe_forward(p, cfg, x, "scatter")
+    assert torch.equal(ep, sc) and torch.equal(ep_aux, sc_aux)
+    with pytest.raises(ValueError):
+        t_moe.moe_forward(p, cfg, x, "no_such_impl")
 
 
 def test_whisper_positions_are_sinusoidal_and_xlstm_has_none():
