@@ -147,9 +147,13 @@ single pod; dbrx-132b train_4k on the multi-pod mesh with --opt
 act,epmoe; deepseek-v3-671b decode_32k on the single pod) as parallel
 subprocesses on the card machine's CPU, meta tensors on a fake 512-rank
 group, under its own torch: each `ok`, its fits check equal to
-`DRYRUN_CELLS`' numbers (computed with the reference's arithmetic), and
-its per-rank FLOPs, unfused bytes, collective bytes and roofline terms
-at the H100's data-sheet rates. The `dist_path` line gives the world,
+`DRYRUN_CELLS`' numbers (computed with the reference's arithmetic), its
+per-rank FLOPs within 1% of `DRYRUN_CELLS`' count (taken on a CPU under
+another torch release: every product with a weight runs on the rank's
+own shard, so the split does not follow the release), glm4-9b's useful
+share at least 0.80, and its unfused bytes, collective bytes and
+roofline terms at the H100's data-sheet rates; the leg names the torch
+release. The `dist_path` line gives the world,
 mesh, plan and backend, params and bytes per rank, peak memory, every
 max difference and the times.
 
@@ -2915,19 +2919,28 @@ def dist_pipeline_leg(torch_device: str, smoke: bool) -> dict:
 
 # the dry run's cells under the card machine's torch, each with its fits
 # check (`build_lowerable`'s state_bytes_per_device, computed on a CPU and
-# equal to the reference's)
-DRYRUN_CELLS = (("glm4-9b", "train_4k", "single", "none", 583176200),
-                ("dbrx-132b", "train_4k", "multi", "act,epmoe", 2718064136),
+# equal to the reference's) and its FLOPs a rank, counted on a CPU under
+# torch 2.13 (`python -m repro_torch.launch.dryrun`)
+DRYRUN_CELLS = (("glm4-9b", "train_4k", "single", "none", 583176200,
+                 252166119882752),
+                ("dbrx-132b", "train_4k", "multi", "act,epmoe", 2718064136,
+                 733318421151744),
                 ("deepseek-v3-671b", "decode_32k", "single", "none",
-                 6896434464))
+                 6896434464, 717102514176))
 DRYRUN_SMOKE_CELLS = (("xlstm-350m", "long_500k", "single", "none",
-                       1617871428),)
+                       1617871428, 808083456),)
+DRYRUN_FLOPS_TOLERANCE = 0.01
+# glm4-9b train_4k: model FLOPs over 256 ranks' counted FLOPs
+DRYRUN_USEFUL_SHARE = 0.80
 
 
 def dist_dryrun_leg(tmp: str, smoke: bool) -> dict:
     """The dryrun leg of `dist_path`: `python -m repro_torch.launch.dryrun`
     once a cell, the cells in parallel, each on the meta device of a fake
-    512-rank group (no card)."""
+    512-rank group (no card); each cell's FLOPs a rank held to
+    `DRYRUN_CELLS`' count within `DRYRUN_FLOPS_TOLERANCE`, and glm4-9b
+    train_4k's useful share to `DRYRUN_USEFUL_SHARE`."""
+    import torch
     out_dir = Path(tmp) / "dryrun"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                REPRO_TORCH_DRYRUN_DIR=str(out_dir), OMP_NUM_THREADS="1",
@@ -2941,7 +2954,7 @@ def dist_dryrun_leg(tmp: str, smoke: bool) -> dict:
         text=True)) for cell in cells]
     recs = []
     try:
-        for (arch, shape, mesh, opt, want_bytes), proc in procs:
+        for (arch, shape, mesh, opt, want_bytes, want_flops), proc in procs:
             log = proc.communicate(timeout=900)[0]
             assert proc.returncode == 0, log[-3000:]
             mesh_name = ("multi_pod_2x16x16" if mesh == "multi"
@@ -2952,17 +2965,26 @@ def dist_dryrun_leg(tmp: str, smoke: bool) -> dict:
             assert rec["status"] == "ok", rec
             assert rec["state_bytes_per_device"] == want_bytes, (
                 arch, rec["state_bytes_per_device"], want_bytes)
-            recs.append({k: rec[k] for k in (
+            flops = rec["cost_analysis"]["flops"]
+            assert abs(flops - want_flops) <= \
+                DRYRUN_FLOPS_TOLERANCE * want_flops, (arch, flops, want_flops)
+            if (arch, shape) == ("glm4-9b", "train_4k"):
+                useful = rec["roofline"]["useful_flops_fraction"]
+                assert useful >= DRYRUN_USEFUL_SHARE, (arch, useful)
+            recs.append({**{k: rec[k] for k in (
                 "arch", "shape", "mesh", "opt", "status", "chips",
                 "state_bytes_per_device", "param_count", "cost_analysis",
                 "collectives", "model_flops", "rates", "roofline",
-                "memory_analysis", "step_s", "seconds")})
+                "memory_analysis", "step_s", "seconds")},
+                "want_flops": want_flops, "flops_vs_want": flops / want_flops})
     finally:
         for _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=10)
-    return {"cells": recs, "seconds": time.perf_counter() - t0}
+    return {"cells": recs, "torch": torch.__version__,
+            "flops_tolerance": DRYRUN_FLOPS_TOLERANCE,
+            "seconds": time.perf_counter() - t0}
 
 
 def drive_dist_path(torch_device: str, modules, tmp: str,

@@ -23,11 +23,17 @@ shardings.
 operations (`models.common.LayoutOps`): the embedding gather
 (`embedding_lookup`), the decode cache's slot write (`write_slot`), the
 stacking of per-layer caches (`stack`), the attention bodies on each
-rank's shards (`on_shards`), the gathered vocab dim of the logits
-(`replicate_dim`), the MoE router's count of assignments per expert
-(`bincount`) and the MoE dispatch body on each rank's tokens and experts
-(`experts_on_shards`, which expert parallelism also runs through). A
-mesh's train and serve steps install them.
+rank's shards (`on_shards`), a recurrence on each rank's heads
+(`on_heads`), the gathered vocab dim of the logits
+(`replicate_dim`), every product of an activation with a weight on this
+rank's shard of the weight (`project_in`, `project_out`), the MoE
+router's count of assignments per expert (`bincount`) and the MoE
+dispatch body on each rank's tokens and experts (`experts_on_shards`,
+which expert parallelism also runs through). A mesh's train and serve
+steps install them. Every op that multiplies by a weight, and every
+attention and expert body, runs on local tensors, so how a step's work
+splits over the ranks is fixed by this module, not by DTensor's sharding
+propagation (which differs between torch releases).
 """
 from __future__ import annotations
 
@@ -246,20 +252,24 @@ def decode_state_shardings(state_specs: PyTree, mesh, batch_size: int,
 def replicate_dim(x: DTensor, dim: int) -> DTensor:
     """x with tensor dim `dim` whole on every rank: a mesh dim that shards
     it, or holds a pending reduction, is made Replicate; the rest keep
-    their placements."""
+    their placements. A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
     keep = [Replicate() if p.is_partial() or (isinstance(p, Shard)
                                              and p.dim == dim) else p
             for p in x.placements]
     return x.redistribute(x.device_mesh, keep)
 
 
-def local_shard(x: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """This rank's part of x with `placements` on `mesh`; a plain tensor
-    is taken as replicated (the same values on every rank)."""
+def local_shard(x: torch.Tensor, mesh, placements,
+                grad=None) -> torch.Tensor:
+    """This rank's part of x with `placements` on `mesh`, its gradient
+    arriving with the placements `grad` (default: `placements`); a plain
+    tensor is taken as replicated (the same values on every rank)."""
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return x.redistribute(mesh, placements).to_local()
+    return x.redistribute(mesh, placements).to_local(grad_placements=grad)
 
 
 def embedding_lookup(table: DTensor, tokens: torch.Tensor) -> DTensor:
@@ -300,32 +310,85 @@ def on_shards(fn, q: DTensor, k: DTensor, v: DTensor, rows=(),
               q_heads: int = 2, **kw) -> DTensor:
     """fn(q, k, v, *rows, **kw) on each rank's shards of DTensor inputs (a
     mesh's train or serve step), its output [B, ..., H, Dv] a DTensor laid
-    out as q. q keeps the mesh dims that shard its batch dim (0) or, where
-    the kv heads divide them, its heads dim (`q_heads`; k and v then shard
-    their kv heads, dim 2, alike, so each rank's query heads meet their
-    own groups); every other mesh dim is replicated, and k, v and `rows`
-    ([B, ...]: positions) follow q's batch dims. A layout choice: the
-    chunked einsums fold the batch and head dims into one, and DTensor's
-    planner takes minutes an op on such a dim sharded over three mesh
-    axes. Plain inputs (tensors the model made itself) go to fn as they
-    are."""
+    out as q. q keeps the mesh dims that shard its batch dim (0) or its
+    heads dim (`q_heads`) where each rank's query heads then meet whole kv
+    groups: where the kv heads divide the mesh dim, k and v shard their kv
+    heads (dim 2) alike; where the mesh dim is a multiple of the kv heads
+    (glm4-9b's 2 on 16), each rank's query heads lie in one group, and it
+    takes that group of k and v (their gradients partial over the ranks).
+    Every other mesh dim is replicated, and k, v and `rows` ([B, ...]:
+    positions) follow q's batch dims. A layout choice: the chunked einsums
+    fold the batch and head dims into one, and DTensor's planner takes
+    minutes an op on such a dim sharded over three mesh axes. Plain inputs
+    (tensors the model made itself) go to fn as they are."""
     if not isinstance(q, DTensor):
         return PLAIN_OPS.on_shards(fn, q, k, v, rows, q_heads, **kw)
     mesh = q.device_mesh
     G = k.shape[2]
-    qp, kvp, rowp = [], [], []
+    qp, kvp, kv_grad, rowp = [], [], [], []
+    group = None  # (mesh dim, its ranks a kv group spans)
     for i, p in enumerate(q.placements):
+        n = mesh.size(i)
         batch = isinstance(p, Shard) and p.dim == 0
         heads = (isinstance(p, Shard) and p.dim == q_heads
-                 and G % mesh.size(i) == 0)
+                 and (G % n == 0 or (n % G == 0 and group is None)))
         qp.append(p if batch or heads else Replicate())
-        kvp.append(p if batch else Shard(2) if heads else Replicate())
+        if heads and G % n:
+            group = (i, n // G)
+            kvp.append(Replicate())
+            kv_grad.append(Partial())
+        else:
+            kvp.append(p if batch else Shard(2) if heads else Replicate())
+            kv_grad.append(kvp[-1])
         rowp.append(p if batch else Replicate())
 
-    out = fn(local_shard(q, mesh, qp), local_shard(k, mesh, kvp),
-             local_shard(v, mesh, kvp),
+    k_l, v_l = (local_shard(t, mesh, kvp, kv_grad) for t in (k, v))
+    if group is not None:
+        i, span = group
+        g = mesh.get_coordinate()[i] // span
+        k_l, v_l = k_l[:, :, g:g + 1], v_l[:, :, g:g + 1]
+    out = fn(local_shard(q, mesh, qp), k_l, v_l,
              *(local_shard(r, mesh, rowp) for r in rows), **kw)
     return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def on_heads(fn, acts, weights, n_heads: int, head_dims=None,
+             out_head_dims=None):
+    """fn(*acts, *weights) on each rank's shards (the xLSTM cells' bodies):
+    the acts keep the mesh dims that shard the first DTensor act's batch
+    dim (0); on the TP axis, where the heads divide it, each act takes its
+    shard of its heads dim (`head_dims`, default the last) and the weights
+    [n_heads, ...] theirs of dim 0; every other mesh dim is replicated.
+    fn's outputs leave as DTensors laid out alike (`out_head_dims`); the
+    weights' gradients are partial over the batch shards. A step over the
+    sequence runs as local ops, none of which needs a DTensor rule (torch
+    2.13 has none for `log_sigmoid_backward`). Plain inputs go to fn as
+    they are."""
+    lead = next((a for a in acts if isinstance(a, DTensor)), None)
+    if lead is None:
+        return PLAIN_OPS.on_heads(fn, acts, weights, n_heads)
+    mesh = lead.device_mesh
+    batch = _mesh_dims(mesh, lead.placements, 0)
+    tp = _tp_mesh_dim(mesh)
+    heads = tp is not None and tp not in batch and \
+        n_heads % mesh.size(tp) == 0
+
+    def places(heads_dim, on_batch, on_tp):
+        return [on_batch if i in batch else on_tp(heads_dim)
+                if heads and i == tp else Replicate()
+                for i in range(mesh.ndim)]
+
+    def act_places(t, dims, j):
+        return places(t.dim() - 1 if dims is None else dims[j] % t.dim(),
+                      Shard(0), Shard)
+
+    outs = fn(*(local_shard(a, mesh, act_places(a, head_dims, j))
+                for j, a in enumerate(acts)),
+              *(local_shard(w, mesh, places(0, Replicate(), Shard),
+                            places(0, Partial(), Shard)) for w in weights))
+    return tuple(DTensor.from_local(o, mesh, act_places(o, out_head_dims, j),
+                                    run_check=False)
+                 for j, o in enumerate(outs))
 
 
 def write_slot(cache: DTensor, slot: torch.Tensor,
@@ -377,6 +440,134 @@ def settle(x: torch.Tensor) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh, [
         Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def _labels(eq: Optional[str], x: torch.Tensor) -> Tuple[str, str, str]:
+    """The einsum labels (x's, w's, the output's) of torch.einsum(eq, x, w),
+    or of torch.matmul(x, w) for a 2-D w when eq is None."""
+    if eq is None:
+        batch = "abcdefgh"[:x.dim() - 1]
+        return batch + "k", "kn", batch + "n"
+    ins, out = eq.replace(" ", "").split("->")
+    xl, wl = ins.split(",")
+    return xl, wl, out
+
+
+def _tp_mesh_dim(mesh) -> Optional[int]:
+    """The mesh dim of the tensor-parallel axis: the hints' where a step
+    set some, else "model"; None where the mesh has no such axis."""
+    from repro_torch.distributed.act_sharding import current
+    h = current()
+    name = h.tp if h is not None else "model"
+    names = list(mesh.mesh_dim_names)
+    return names.index(name) if name in names else None
+
+
+def _project(x, w, eq: Optional[str], contracted: bool,
+             split: Optional[str] = None):
+    """The product of x with the weight w on this rank's shards, the
+    output a DTensor (or, for plain x and w, the one-device product).
+
+    On the tensor-parallel mesh dim, w keeps its shard of its TP dim (the
+    weight's placement, which the rules give where the dim divides the
+    axis); x is made whole there, or cut to the same shard where the dim
+    is also x's; the output is sharded on that dim where it keeps it, else
+    a `Partial` sum. A w whole on that dim (a weight with no TP dim, kv
+    heads) is multiplied whole on every model rank, unless the caller
+    names its label `split`: then each rank takes its shard of that dim
+    where the dim divides the axis (a local cut), and else its share of
+    x's first batch dim that divides it (the batch, else the sequence),
+    the output gathered whole over the axis (one all-gather; the
+    reference's layout of k and v, at 1/n of the work). On every other
+    mesh dim, w is gathered whole (an fsdp shard of its embed dim, if the
+    ZeRO-3 hook has not gathered it), and x keeps its shard of a batch
+    dim (a label of x and the output, not of w) and is made whole on any
+    other. `contracted` says which the caller expects of the TP dim; a
+    weight laid out otherwise raises.
+
+    The local tensors carry the gradient placements autograd needs: x's
+    partial over the model ranks where it was made whole for a
+    column-parallel product, w's partial over the ranks that hold
+    different rows of x."""
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return PLAIN_OPS.project_in(x, w, eq)
+    mesh = (w if isinstance(w, DTensor) else x).device_mesh
+    # a pending reduction of x (a mean's `Partial(avg)` from DTensor's own
+    # rules) is carried out first: the gradient's `Partial(sum)` cannot be
+    # redistributed back onto an average
+    x = settle(x)
+    xl, wl, ol = _labels(eq, x)
+    tp = _tp_mesh_dim(mesh)
+    rep = [Replicate()] * mesh.ndim
+    x_now = list(x.placements) if isinstance(x, DTensor) else list(rep)
+    w_now = list(w.placements) if isinstance(w, DTensor) else list(rep)
+    rows = None
+    if tp is not None and split is not None and \
+            not isinstance(w_now[tp], Shard):
+        n = mesh.size(tp)
+        if w.shape[wl.index(split)] % n == 0:
+            w_now[tp] = Shard(wl.index(split))
+        elif not isinstance(x_now[tp], Shard):
+            rows = next((d for d, c in enumerate(xl) if c in ol
+                         and c not in wl and x.shape[d] % (n * math.prod(
+                             mesh.size(i) for i in _mesh_dims(mesh, x_now,
+                                                              d))) == 0),
+                        None)
+            if rows is not None:
+                x_now[tp] = Shard(rows)
+    xp, xg, wp, wg, op = [], [], [], [], []
+    for i in range(mesh.ndim):
+        pw, px = w_now[i], x_now[i]
+        if i == tp and type(pw) is Shard:
+            t = wl[pw.dim]
+            if (t not in ol) != contracted:
+                raise ValueError(
+                    f"the weight's TP dim {t!r} of {eq or 'matmul'} is "
+                    f"{'kept' if t in ol else 'contracted'}: use "
+                    f"project_{'in' if t in ol else 'out'}")
+            wp.append(pw)
+            wg.append(pw)
+            if t in xl:
+                xp.append(Shard(xl.index(t)))
+                xg.append(xp[-1])
+            else:
+                xp.append(Replicate())
+                xg.append(Partial())
+            op.append(Shard(ol.index(t)) if t in ol else Partial())
+        elif type(px) is Shard and xl[px.dim] in ol and xl[px.dim] not in wl:
+            xp.append(px)
+            xg.append(px)
+            wp.append(Replicate())
+            wg.append(Partial())
+            op.append(Shard(ol.index(xl[px.dim])))
+        else:
+            xp.append(Replicate())
+            xg.append(Replicate())
+            wp.append(Replicate())
+            wg.append(Replicate())
+            op.append(Replicate())
+    y = PLAIN_OPS.project_in(local_shard(x, mesh, xp, xg),
+                             local_shard(w, mesh, wp, wg), eq)
+    out = DTensor.from_local(y, mesh, op, run_check=False)
+    if rows is not None:
+        op[tp] = Replicate()
+        out = out.redistribute(mesh, op)
+    return out
+
+
+def project_in(x, w, eq: Optional[str] = None,
+               split: Optional[str] = None):
+    """`LayoutOps.project_in` under a mesh: a column-parallel product (or
+    one batched over the weight's TP dim) on this rank's shard of w, its
+    output sharded over the TP axis on that dim (`_project`)."""
+    return _project(x, w, eq, contracted=False, split=split)
+
+
+def project_out(x, w, eq: Optional[str] = None):
+    """`LayoutOps.project_out` under a mesh: a row-parallel product on
+    this rank's shards of x and w, the partial sums settled (`settle`:
+    one all-reduce over the TP axis)."""
+    return settle(_project(x, w, eq, contracted=True))
 
 
 def _mesh_dims(mesh, placements, dim: int) -> list:
@@ -464,30 +655,23 @@ def experts_on_shards(fn, xf, weights, idx, wi, wg, wo, *, mesh=None,
         return [on_tok if i in tok else on_exp if i in exp else Replicate()
                 for i in range(mesh.ndim)]
 
-    def local(t, place, grad=None):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        t = t.redistribute(mesh, place)
-        return t.to_local() if grad is None else t.to_local(
-            grad_placements=grad)
-
     rows, rows_grad = places(Shard(0), Replicate()), places(Shard(0),
                                                             Partial())
     w_place, w_grad = places(Replicate(), Shard(0)), places(Partial(),
                                                             Shard(0))
-    x_l = local(xf, rows, rows_grad)
-    idx_l = local(idx, rows)
+    x_l = local_shard(xf, mesh, rows, rows_grad)
+    idx_l = local_shard(idx, mesh, rows)
     offset = None
     if in_order and tok:
         counts = DTensor.from_local(
             PLAIN_OPS.bincount(idx_l, E)[None], mesh,
             places(Shard(0), Replicate()), run_check=False).full_tensor()
         offset = counts[:_linear_coordinate(mesh, tok)].sum(0).long()
-    y = fn(x_l, local(weights, rows, rows_grad), idx_l,
-           local(wi, w_place, w_grad),
-           None if wg is None else local(wg, w_place, w_grad),
-           local(wo, w_place, w_grad), _linear_coordinate(mesh, exp),
+    y = fn(x_l, local_shard(weights, mesh, rows, rows_grad), idx_l,
+           local_shard(wi, mesh, w_place, w_grad),
+           None if wg is None else local_shard(wg, mesh, w_place, w_grad),
+           local_shard(wo, mesh, w_place, w_grad),
+           _linear_coordinate(mesh, exp),
            E // math.prod(mesh.size(i) for i in exp), offset)
     out = DTensor.from_local(y, mesh, rows_grad, run_check=False,
                              shape=xf.shape, stride=xf.stride())
@@ -511,9 +695,9 @@ def _experts_form(fn, xf, weights, idx, wi, wg, wo, in_order=True,
 # The models' layout-dependent operations on a mesh's DTensors, installed
 # by the train and serve steps under a mesh (`models.common.use_layout`).
 MESH_OPS = LayoutOps(take_rows=embedding_lookup, write_slot=write_slot,
-                     stack=stack, on_shards=on_shards,
-                     whole_dim=replicate_dim, settle=settle,
-                     bincount=bincount,
+                     stack=stack, on_shards=on_shards, on_heads=on_heads,
+                     whole_dim=replicate_dim, project_in=project_in,
+                     project_out=project_out, bincount=bincount,
                      experts=_experts_form)
 
 

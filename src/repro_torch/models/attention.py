@@ -18,7 +18,10 @@ per-rank body of the sequence-sharded decode
 `attend_fn` in place of `decode_attend`. The attention bodies and the
 cache's slot write go through `common.layout()`, whose forms a mesh's step
 sets. MLA decodes in latent space without an `attend_fn`, in both
-packages.
+packages. Every product with a weight runs through `layout().project_in`
+(q, k, v; MLA's up-projections and absorbed products) or `project_out`
+(the output projection): under a mesh, on this rank's shard of the
+weight.
 """
 from __future__ import annotations
 
@@ -278,11 +281,23 @@ def init_attention(b: ParamBuilder, cfg, cross: bool = False):
                 dtype=torch.float32)
 
 
+def _kv(p, kv_src, dtype):
+    """k and v of kv_src. The rules map no mesh axis to wk's and wv's kv
+    heads, so under a mesh each model rank computes its own kv heads
+    where they divide the model axis (the ones the attention body reads
+    on that rank); where they do not (glm4-9b's 2 kv heads on a 16-way
+    axis), each computes its share of the batch, and k and v are gathered
+    whole on every model rank, as the reference's `constrain` of k and v
+    asks."""
+    project = layout().project_in
+    return (project(kv_src, p["wk"].to(dtype), "bsd,dgk->bsgk", split="g"),
+            project(kv_src, p["wv"].to(dtype), "bsd,dgk->bsgk", split="g"))
+
+
 def _qkv(p, cfg, x, kv_src=None):
     kv_src = x if kv_src is None else kv_src
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dgk->bsgk", kv_src, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dgk->bsgk", kv_src, p["wv"].to(x.dtype))
+    q = layout().project_in(x, p["wq"].to(x.dtype), "bsd,dhk->bshk")
+    k, v = _kv(p, kv_src, x.dtype)
     q = constrain(q, "dp", None, "tp", None)
     k = constrain(k, "dp", None, None, None)
     v = constrain(v, "dp", None, None, None)
@@ -302,8 +317,7 @@ def _rms_head(x, scale, eps=1e-6):
 
 
 def _out_proj(p, o):
-    y = layout().settle(torch.einsum("bshk,hkd->bsd", o,
-                                     p["wo"].to(o.dtype)))
+    y = layout().project_out(o, p["wo"].to(o.dtype), "bshk,hkd->bsd")
     if "bo" in p:
         y = y + p["bo"].to(o.dtype)
     return y
@@ -402,7 +416,7 @@ def attention_decode(p, cfg, x, cache, cur_pos,
 def cross_attention_decode(p, cfg, x, cache):
     """Decode-time cross attention against the static cross K/V built at
     prefill: every one of the Sc source rows is visible."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = layout().project_in(x, p["wq"].to(x.dtype), "bsd,dhk->bshk")
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     B = x.shape[0]
@@ -418,8 +432,7 @@ def cross_attention_decode(p, cfg, x, cache):
 
 
 def cross_attention_build_cache(p, cfg, kv_src):
-    k = torch.einsum("bsd,dgk->bsgk", kv_src, p["wk"].to(kv_src.dtype))
-    v = torch.einsum("bsd,dgk->bsgk", kv_src, p["wv"].to(kv_src.dtype))
+    k, v = _kv(p, kv_src, kv_src.dtype)
     if "bv" in p:
         v = v + p["bv"].to(kv_src.dtype)
     return {"k": k, "v": v}
@@ -449,14 +462,17 @@ def init_mla(b: ParamBuilder, cfg):
 
 def mla_latents(p, cfg, x, positions):
     """q (nope and rope parts), the compressed kv latent and the rope key
-    shared by every head ([B, S, 1, dr])."""
+    shared by every head ([B, S, 1, dr]). The down-projections wq_a and
+    wkv_a have no TP dim: under a mesh every model rank computes them
+    whole, as the reference's shardings leave them."""
     m = cfg.mla
     dn = m.qk_nope_head_dim
-    q_lat = _rms_head(torch.matmul(x, p["wq_a"].to(x.dtype)), p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"].to(x.dtype))
+    project = layout().project_in
+    q_lat = _rms_head(project(x, p["wq_a"].to(x.dtype)), p["q_norm"])
+    q = project(q_lat, p["wq_b"].to(x.dtype), "bsr,rhk->bshk")
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv = torch.matmul(x, p["wkv_a"].to(x.dtype))
+    kv = project(x, p["wkv_a"].to(x.dtype))
     c_kv = _rms_head(kv[..., : m.kv_lora_rank], p["kv_norm"])
     k_rope = kv[..., m.kv_lora_rank:][:, :, None, :]
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
@@ -477,16 +493,16 @@ def mla_forward(p, cfg, x, positions):
 def _mla_attend(p, cfg, x, latents):
     m = cfg.mla
     q_nope, q_rope, c_kv, k_rope = latents
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(x.dtype))
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(x.dtype))
+    project = layout().project_in
+    k_nope = project(c_kv, p["wk_b"].to(x.dtype), "bsr,rhk->bshk")
+    v = project(c_kv, p["wv_b"].to(x.dtype), "bsr,rhk->bshk")
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat(
         [k_nope, k_rope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)],
         dim=-1)
     o = blocked_attention(q_full, k_full, v, kind="causal",
                           scale=_mla_scale(m))
-    return layout().settle(torch.einsum("bshk,hkd->bsd", o,
-                                        p["wo"].to(o.dtype)))
+    return layout().project_out(o, p["wo"].to(o.dtype), "bshk,hkd->bsd")
 
 
 def mla_prefill(p, cfg, x, positions, cache_len: int):
@@ -520,7 +536,8 @@ def mla_decode(p, cfg, x, cache, cur_pos):
     pos_cache = write(cache["pos"], slot, cur_pos)
 
     # absorb: q_eff[b,h,r] = q_nope . wk_b -> score against the latent
-    q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"].to(x.dtype))
+    q_abs = layout().project_in(q_nope[:, 0], p["wk_b"].to(x.dtype),
+                                "bhk,rhk->bhr")
     logits = (
         torch.einsum("bhr,bsr->bhs", q_abs.float(), c_cache.float())
         + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), r_cache.float())
@@ -532,7 +549,6 @@ def mla_decode(p, cfg, x, cache, cur_pos):
     pr = pr / pr.sum(dim=-1, keepdim=True)
     ctx_lat = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).float(),
                            c_cache.float()).to(x.dtype)
-    o = torch.einsum("bhr,rhk->bhk", ctx_lat, p["wv_b"].to(x.dtype))
-    y = layout().settle(torch.einsum("bhk,hkd->bd", o,
-                                     p["wo"].to(o.dtype)))[:, None]
+    o = layout().project_in(ctx_lat, p["wv_b"].to(x.dtype), "bhr,rhk->bhk")
+    y = layout().project_out(o, p["wo"].to(o.dtype), "bhk,hkd->bd")[:, None]
     return y, {"c_kv": c_cache, "k_rope": r_cache, "pos": pos_cache}

@@ -18,13 +18,15 @@ plain tensor, the identity). The axes trees (`is_axes_leaf`, `map_axes`,
 
 `LayoutOps` holds the few operations whose form depends on where the
 tensors live: the embedding gather, the decode cache's slot write, the
-stacking of per-layer trees, the attention body, the gathering of a
-sharded dim, the settling of a row-parallel product's partial sums, the
-count of routed assignments per expert and the MoE experts' dispatch
-body. The models call them through `layout()`. Their defaults are the
-one-device forms; a mesh's step installs the DTensor forms of
-`repro_torch.distributed.sharding` for its duration (`use_layout`), so
-the models hold no knowledge of how a mesh lays tensors out.
+stacking of per-layer trees, the attention body, a recurrence over
+independent heads (the xLSTM cells), the gathering of a sharded dim,
+every product of an activation with a weight (its column-parallel and
+row-parallel forms), the count of routed assignments per expert and the
+MoE experts' dispatch body. The models call them through `layout()`.
+Their defaults are the one-device forms; a mesh's step installs the
+DTensor forms of `repro_torch.distributed.sharding` for its duration
+(`use_layout`), so the models hold no knowledge of how a mesh lays
+tensors out.
 """
 from __future__ import annotations
 
@@ -199,12 +201,18 @@ def _on_shards(fn: Callable, q, k, v, rows=(), q_heads: int = 2, **kw):
     return fn(q, k, v, *rows, **kw)
 
 
+def _on_heads(fn: Callable, acts, weights, n_heads: int, head_dims=None,
+              out_head_dims=None):
+    return fn(*acts, *weights)
+
+
 def _whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x
 
 
-def _settle(x: torch.Tensor) -> torch.Tensor:
-    return x
+def _product(x: torch.Tensor, w: torch.Tensor, eq: Optional[str] = None,
+             split: Optional[str] = None) -> torch.Tensor:
+    return torch.matmul(x, w) if eq is None else torch.einsum(eq, x, w)
 
 
 def _bincount(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -229,10 +237,28 @@ class LayoutOps:
     on_shards(fn, q, k, v, rows=(), q_heads=2, **kw): an attention body
         fn(q, k, v, *rows, **kw) -> [B, ..., H, Dv]; q [B, ..., H, D] has
         its heads at dim `q_heads`, k and v [B, S, G, D], rows [B, ...].
+    on_heads(fn, acts, weights, n_heads, head_dims=None,
+        out_head_dims=None): fn(*acts, *weights) -> a tuple of tensors, a
+        body whose n_heads heads do not mix: acts [B, ...] with their
+        heads at dim head_dims[i] (default: the last, which may fold the
+        heads with a trailing dim, heads outer), weights [n_heads, ...],
+        and each output's heads at out_head_dims[j] (default: the last).
+        Under a mesh each rank runs it on its batch shard and its heads.
     whole_dim(x, dim): x with dim `dim` whole (the vocab dim of the
         logits before the gold-logit gather).
-    settle(y): y with any pending reduction carried out (a row-parallel
-        product's partial sums).
+    project_in(x, w, eq=None, split=None): torch.matmul(x, w), or
+        torch.einsum(eq, x, w), for a weight whose tensor-parallel dim
+        (heads, mlp, vocab, experts) stays in the output: a
+        column-parallel product, or one batched over that dim. Under a
+        mesh each rank multiplies by its own shard of w and keeps its
+        shard of the output; `split` names a label of w (the kv heads)
+        that is cut so where the weight is whole and the label's size
+        divides the axis, and where it does not, each rank multiplies its
+        share of x's rows and the output is gathered whole.
+    project_out(x, w, eq=None): the same product for a weight whose
+        tensor-parallel dim is contracted (row-parallel). Under a mesh
+        each rank multiplies its shard of x by its shard of w, and the
+        partial sums are added up (one all-reduce) before it returns.
     bincount(ids, n): float32 [n], how often each of 0..n-1 occurs in ids.
     experts(fn, xf, weights, idx, wi, wg, wo, in_order=True,
         expert_axes=None): the MoE dispatch body fn(xf, weights, idx, wi,
@@ -247,8 +273,10 @@ class LayoutOps:
     write_slot: Callable = _write_slot
     stack: Callable = _stack
     on_shards: Callable = _on_shards
+    on_heads: Callable = _on_heads
     whole_dim: Callable = _whole_dim
-    settle: Callable = _settle
+    project_in: Callable = _product
+    project_out: Callable = _product
     bincount: Callable = _bincount
     experts: Callable = _experts
 
@@ -371,7 +399,8 @@ def init_dense(b: ParamBuilder, name: str, in_dim: int, out_dim: int,
 
 
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return layout().settle(torch.matmul(x, w.to(x.dtype)))
+    """x @ w for a column-parallel w (its output dim on the TP axis)."""
+    return layout().project_in(x, w.to(x.dtype))
 
 
 def init_mlp(b: ParamBuilder, d_model: int, d_ff: int, use_glu: bool,
@@ -392,5 +421,5 @@ def apply_mlp(p: PyTree, x: torch.Tensor, act_name: str,
         h = act(h) * dense(p["wg"], x)
     else:
         h = act(h)
-    y = dense(p["wo"], h)
+    y = layout().project_out(h, p["wo"].to(h.dtype))
     return constrain(y, *(("dp",) + (None,) * (y.dim() - 1)))

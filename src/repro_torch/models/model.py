@@ -141,10 +141,11 @@ class Model:
     def _logits(self, params, x):
         cfg = self.cfg
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        if cfg.tie_embeddings:
-            logits = torch.matmul(x, params["embed"].to(x.dtype).T)
-        else:
-            logits = torch.matmul(x, params["lm_head"].to(x.dtype))
+        # column-parallel: under a mesh each model rank computes its shard
+        # of the vocab (`loss` makes the dim whole before the gold gather)
+        w = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
+             else params["lm_head"].to(x.dtype))
+        logits = layout().project_in(x, w)
         logits = logits.to(dtype_of(cfg.logits_dtype))
         if cfg.padded_vocab_size != cfg.vocab_size:
             pad = cfg.padded_vocab_size - cfg.vocab_size

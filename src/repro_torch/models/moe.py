@@ -57,8 +57,10 @@ def _router(p, cfg, x_flat):
     """Top-k routing in float32. Returns (weights [T,k], idx [T,k],
     aux_loss scalar)."""
     mo = cfg.moe
-    logits = torch.matmul(x_flat.float(), p["router"].float())
-    probs = torch.softmax(logits, dim=-1)
+    # column-parallel on the router's experts dim, as the reference's
+    # shardings lay it out; the softmax and top-k read every expert's logit
+    logits = layout().project_in(x_flat.float(), p["router"].float())
+    probs = torch.softmax(layout().whole_dim(logits, 1), dim=-1)
     # sorted=True: descending, as jax.lax.top_k
     weights, idx = torch.topk(probs, mo.top_k, dim=-1, sorted=True)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
@@ -84,12 +86,13 @@ def _expert_ffn(p, cfg, h_in):
 
 def _shared_ffn(p, cfg, x):
     act = activation(cfg.act)
-    h = torch.matmul(x, p["shared_wi"].to(x.dtype))
+    project = layout().project_in
+    h = project(x, p["shared_wi"].to(x.dtype))
     if cfg.use_glu:
-        h = act(h) * torch.matmul(x, p["shared_wg"].to(x.dtype))
+        h = act(h) * project(x, p["shared_wg"].to(x.dtype))
     else:
         h = act(h)
-    return layout().settle(torch.matmul(h, p["shared_wo"].to(x.dtype)))
+    return layout().project_out(h, p["shared_wo"].to(x.dtype))
 
 
 def capacity(cfg, tokens: int) -> int:

@@ -73,9 +73,11 @@ def init_rg_lru(b: ParamBuilder, width: int):
 
 
 def _gates(p, y):
-    r = torch.sigmoid(torch.matmul(y, p["w_a"].to(y.dtype))
+    # w_a, w_x: [width ("mlp"), width ("mlp2")], row-parallel on y's shard
+    project = layout().project_out
+    r = torch.sigmoid(project(y, p["w_a"].to(y.dtype))
                       + p["b_a"].to(y.dtype))
-    i = torch.sigmoid(torch.matmul(y, p["w_x"].to(y.dtype))
+    i = torch.sigmoid(project(y, p["w_x"].to(y.dtype))
                       + p["b_x"].to(y.dtype))
     log_a = -LRU_C * F.softplus(p["lambda_raw"]) * r.float()
     return log_a, i
@@ -130,8 +132,9 @@ def init_recurrent_block(b: ParamBuilder, cfg):
 
 
 def _branches(p, x):
-    b1 = gelu(torch.matmul(x, p["w_branch1"].to(x.dtype)))
-    u = torch.matmul(x, p["w_branch2"].to(x.dtype))
+    project = layout().project_in
+    b1 = gelu(project(x, p["w_branch1"].to(x.dtype)))
+    u = project(x, p["w_branch2"].to(x.dtype))
     return constrain(b1, "dp", None, "tp"), constrain(u, "dp", None, "tp")
 
 
@@ -139,8 +142,7 @@ def recurrent_block_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
     b1, u = _branches(p, x)
     u = conv1d_causal(p["conv"], u)
     lru_out = rg_lru_forward(p["lru"], u)
-    return layout().settle(torch.matmul(b1 * lru_out,
-                                        p["w_out"].to(x.dtype)))
+    return layout().project_out(b1 * lru_out, p["w_out"].to(x.dtype))
 
 
 def recurrent_block_prefill(p, cfg, x: torch.Tensor):
@@ -150,7 +152,7 @@ def recurrent_block_prefill(p, cfg, x: torch.Tensor):
     a, gated = _decay_and_input(p["lru"], uc)
     _, h_all = linear_scan(a, gated)
     lru_out = h_all.to(x.dtype)
-    y = layout().settle(torch.matmul(b1 * lru_out, p["w_out"].to(x.dtype)))
+    y = layout().project_out(b1 * lru_out, p["w_out"].to(x.dtype))
     cw = cfg.conv_width
     state = {
         # copies, so the state does not hold the whole sequence's tensors
@@ -167,6 +169,5 @@ def recurrent_block_decode(p, cfg, x_t: torch.Tensor, state):
     b1, u = _branches(p, x_t[:, 0])
     uc, conv_state = conv1d_decode(p["conv"], u, state["conv"])
     lru_out, h = rg_lru_step(p["lru"], uc, state["h"])
-    y = layout().settle(torch.matmul(b1 * lru_out,
-                                     p["w_out"].to(x_t.dtype)))
+    y = layout().project_out(b1 * lru_out, p["w_out"].to(x_t.dtype))
     return y[:, None], {"h": h, "conv": conv_state}

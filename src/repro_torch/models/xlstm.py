@@ -16,6 +16,7 @@ stabilizer.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -154,6 +155,17 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: int = 256, state=None):
     return h.to(q.dtype), (C, n, m_c)
 
 
+def _mlstm_cells(q, k, v, i_gate, f_gate, *state, chunk=None):
+    """The mLSTM cell as a flat body for `layout().on_heads`: chunkwise
+    over the sequence with `chunk`, else one decode step
+    (`mlstm_step`). Returns (h, C, n, m)."""
+    if chunk is None:
+        h, (C, n, m) = mlstm_step(q, k, v, i_gate, f_gate, state)
+    else:
+        h, (C, n, m) = mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk=chunk)
+    return h, C, n, m
+
+
 def mlstm_step(q1, k1, v1, i1, f1, state):
     """Single-token decode. q1..: [B, H, D], gates [B, H]."""
     h, state = mlstm_recurrent(q1[:, None], k1[:, None], v1[:, None],
@@ -187,10 +199,13 @@ def _mlstm_proj(p, c_act, u):
     """q, k from the conv branch, v from u, the gates (i then f) with
     their bias; each a product at u's dtype."""
     dt = u.dtype
-    q = torch.matmul(c_act, p["wq"].to(dt))
-    k = torch.matmul(c_act, p["wk"].to(dt))
-    v = torch.matmul(u, p["wv"].to(dt))
-    gates = torch.matmul(c_act, p["w_if"].to(dt)) + p["b_if"].to(dt)
+    # wq, wk, wv [inner ("mlp"), inner ("mlp2")] and w_if [inner ("mlp"),
+    # 2H]: row-parallel on the inner dim's shard
+    project = layout().project_out
+    q = project(c_act, p["wq"].to(dt))
+    k = project(c_act, p["wk"].to(dt))
+    v = project(u, p["wv"].to(dt))
+    gates = project(c_act, p["w_if"].to(dt)) + p["b_if"].to(dt)
     return q, k, v, gates
 
 
@@ -212,12 +227,13 @@ def _mlstm_out(p, h, c_act, g):
     """(h + skip * conv branch) * silu(gate branch), projected down."""
     dt = g.dtype
     y = (h + p["skip_scale"].to(dt) * c_act) * silu(g)
-    return layout().settle(torch.matmul(y, p["w_down"].to(dt)))
+    return layout().project_out(y, p["w_down"].to(dt))
 
 
 def _up(p, x):
-    u = torch.matmul(x, p["w_up"].to(x.dtype))
-    g = torch.matmul(x, p["w_gate"].to(x.dtype))
+    project = layout().project_in
+    u = project(x, p["w_up"].to(x.dtype))
+    g = project(x, p["w_gate"].to(x.dtype))
     return constrain(u, "dp", None, "tp"), constrain(g, "dp", None, "tp")
 
 
@@ -229,7 +245,11 @@ def mlstm_block_prefill(p, cfg, x, chunk: int = 256):
     B, S, d = x.shape
     u, g = _up(p, x)
     q, k, v, ig, fg, c_act = _mlstm_qkvif(p, cfg, u)
-    h, state = mlstm_chunkwise(q, k, v, ig, fg, chunk=chunk)
+    # heads at dim 2 of q, k, v [B, S, H, D] and the gates [B, S, H], of h;
+    # at dim 1 of the state C [B, H, D, D], n [B, H, D], m [B, H]
+    h, *state = layout().on_heads(
+        functools.partial(_mlstm_cells, chunk=chunk), [q, k, v, ig, fg], [],
+        cfg.num_heads, (2,) * 5, (2, 1, 1, 1))
     out = _mlstm_out(p, h.reshape(B, S, -1), c_act, g)
     cw = cfg.conv_width
     # a copy, so the state does not hold the whole sequence's tensor
@@ -247,9 +267,12 @@ def mlstm_block_decode(p, cfg, x_t, st):
     q, k, v, gates = _mlstm_proj(p, c_act, u)
     B, inner = u.shape
     D = inner // nh
-    h, state = mlstm_step(
-        q.reshape(B, nh, D), k.reshape(B, nh, D), v.reshape(B, nh, D),
-        gates[..., :nh], gates[..., nh:], (st["C"], st["n"], st["m"]))
+    # heads at dim 1 of every input ([B, H, D], [B, H] and the state) and
+    # output
+    h, *state = layout().on_heads(
+        _mlstm_cells, [q.reshape(B, nh, D), k.reshape(B, nh, D),
+                       v.reshape(B, nh, D), gates[..., :nh], gates[..., nh:],
+                       st["C"], st["n"], st["m"]], [], nh, (1,) * 8, (1,) * 4)
     out = _mlstm_out(p, h.reshape(B, -1), c_act, g)
     return out[:, None], {"C": state[0], "n": state[1], "m": state[2],
                           "conv": conv_state}
@@ -285,35 +308,48 @@ def init_slstm_block(b: ParamBuilder, cfg):
 
 def slstm_scan(p, cfg, x_conv, x_raw, state=None):
     """x_conv: conv-smoothed input (for i/f gates), x_raw for z/o. [B,S,d].
-    state: (c, n, h, m), each [B, d] float32, or None (n starts at 1)."""
+    state: (c, n, h, m), each [B, d] float32, or None (n starts at 1).
+    The recurrence runs through `layout().on_heads`: under a mesh, on each
+    rank's batch shard and heads (the heads do not mix)."""
     B, S, d = x_raw.shape
-    nh = cfg.num_heads
-    dh = d // nh
     dt = x_raw.dtype
     # input contributions precomputed for the whole sequence
-    pre = {}
+    pre = []
+    project = layout().project_in
     for gate in GATES:
         src = x_conv if gate in ("i", "f") else x_raw
-        pre[gate] = (torch.matmul(src, p[f"w_{gate}"].to(dt))
-                     + p[f"b_{gate}"].to(dt)).float()
+        pre.append((project(src, p[f"w_{gate}"].to(dt))
+                    + p[f"b_{gate}"].to(dt)).float())
 
     if state is None:
         f32 = dict(dtype=torch.float32, device=x_raw.device)
         state = (torch.zeros((B, d), **f32), torch.ones((B, d), **f32),
                  torch.zeros((B, d), **f32), torch.zeros((B, d), **f32))
-    r = {gate: p[f"r_{gate}"].float() for gate in GATES}
+    r = [p[f"r_{gate}"].float() for gate in GATES]
+    hs, *state = layout().on_heads(_slstm_cells, [*pre, *state], r,
+                                   cfg.num_heads)
+    return hs.to(dt), tuple(state)
 
-    def rec(gate, h):
+
+def _slstm_cells(pre_z, pre_i, pre_f, pre_o, c, n, h, m, r_z, r_i, r_f,
+                 r_o):
+    """The sLSTM recurrence over the heads of r_* [nh, dh, dh]: the input
+    contributions pre_* [B, S, nh * dh] and the state (c, n, h, m) [B, nh
+    * dh], float32. Returns (h at every step [B, S, nh * dh], c, n, h, m)."""
+    B, S, d = pre_z.shape
+    nh = r_z.shape[0]
+    dh = d // nh
+
+    def rec(r, h):
         hh = h.reshape(B, nh, dh)
-        return torch.einsum("bhk,hkj->bhj", hh, r[gate]).reshape(B, d)
+        return torch.einsum("bhk,hkj->bhj", hh, r).reshape(B, d)
 
-    c, n, h, m = state
     hs = []
     for t in range(S):
-        z = torch.tanh(pre["z"][:, t] + rec("z", h))
-        i_t = pre["i"][:, t] + rec("i", h)
-        f_t = pre["f"][:, t] + rec("f", h)
-        o = torch.sigmoid(pre["o"][:, t] + rec("o", h))
+        z = torch.tanh(pre_z[:, t] + rec(r_z, h))
+        i_t = pre_i[:, t] + rec(r_i, h)
+        f_t = pre_f[:, t] + rec(r_f, h)
+        o = torch.sigmoid(pre_o[:, t] + rec(r_o, h))
         logf = F.logsigmoid(f_t)
         m_new = torch.maximum(logf + m, i_t)
         i_p = torch.exp(i_t - m_new)
@@ -323,14 +359,15 @@ def slstm_scan(p, cfg, x_conv, x_raw, state=None):
         h = o * (c / torch.clamp(n, min=1e-6))
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1).to(dt), (c, n, h, m)
+    return torch.stack(hs, dim=1), c, n, h, m
 
 
 def _slstm_ffn(p, cfg, h):
     hn = apply_norm({"scale": p["ffn_norm_scale"]}, h, "rmsnorm")
-    f = gelu(torch.matmul(hn, p["ffn_wi"].to(h.dtype)))
-    f = f * torch.matmul(hn, p["ffn_wg"].to(h.dtype))
-    return h + layout().settle(torch.matmul(f, p["ffn_wo"].to(h.dtype)))
+    project = layout().project_in
+    f = gelu(project(hn, p["ffn_wi"].to(h.dtype)))
+    f = f * project(hn, p["ffn_wg"].to(h.dtype))
+    return h + layout().project_out(f, p["ffn_wo"].to(h.dtype))
 
 
 def slstm_block_forward(p, cfg, x):

@@ -5,10 +5,12 @@ shape, mesh) cell at full size against the reference's
 `build_lowerable(...)[4]` (the reference in one subprocess with 512 forced
 host devices, building shardings only; the port in another, on a fake
 process group of 512 ranks); per-rank FLOPs of a dense train step on a
-(2, 2, 2) fake mesh against the same step without a mesh; `run_cell` on
+(2, 2, 2) fake mesh against the same step without a mesh, under the
+step's own hints and with the activations pinned; `run_cell` on
 one cell per block kind on both production meshes at smoke size;
 `calibrate_cell` against the direct count; and the CLI on one cell. Every
 run that joins a process group runs in a subprocess."""
+import functools
 import json
 import os
 import pathlib
@@ -125,6 +127,7 @@ _FLOPS = """
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.act_sharding import Hints, use_hints
     from repro_torch.launch import dryrun as d
     from repro_torch.launch.roofline import RankCounter
     from repro_torch.models import build_model
@@ -143,27 +146,45 @@ _FLOPS = """
     state = {"params": params, "opt": opt_state, "step": meta(())}
     with RankCounter() as plain:
         make_train_step(model, opt)(state, batch)
-    placed = sh.distribute(state, shard)
-    with RankCounter() as rank:
-        make_train_step(model, opt, mesh=mesh)(placed, batch)
-    print("FLOPS", json.dumps([plain.flops, rank.flops,
-                               rank.collectives()["total_bytes"]]))
+    out = [plain.flops]
+    pinned = Hints(mesh, ("pod", "data"), "model", zero3_gather=True,
+                   constrain_activations=True)
+    for hints in (None, pinned):
+        placed = sh.distribute(state, shard)
+        with use_hints(hints), RankCounter() as rank:
+            make_train_step(model, opt, mesh=mesh)(placed, batch)
+        out += [rank.flops, rank.collectives()["total_bytes"]]
+    print("FLOPS", json.dumps(out))
 """
+
+
+@functools.lru_cache(maxsize=1)
+def _flops():
+    return tuple(_run(_FLOPS, "FLOPS"))
 
 
 def test_per_rank_flops_split_a_dense_train_step():
     """glm4-9b smoke (fsdp_tp: 2 kv heads, every sharded dim divides 2) on
     the (2, 2, 2) mesh, batch 8 x 16, counted from each rank's local calls
-    against the same step without a mesh. Eight ranks do at least the
-    unsharded step's FLOPs, and each far less than all of it. Not exactly
-    an eighth: DTensor's sharding propagation gathers the attention's
-    q/k/v projection weights over "model" and computes those products
-    whole on each model rank (8 x 44,826,624 = 358,612,992 against
-    283,115,520 unsharded)."""
-    plain, rank, coll = _run(_FLOPS, "FLOPS")
+    against the same step without a mesh, under the step's own hints (the
+    activations left to propagation). The split is exact: every product
+    with a weight runs on this rank's shard of it (`LayoutOps.project_in`
+    and `project_out`; k and v on the rank's own kv heads) and on its
+    batch shard, and every attention body on its heads, so the eight
+    ranks together do the unsharded step's FLOPs, each an eighth."""
+    plain, rank, coll = _flops()[:3]
     assert coll > 0
-    assert (plain, rank) == (283_115_520, 44_826_624)
-    assert plain <= 8 * rank < 1.3 * plain
+    assert (plain, rank) == (283_115_520, 35_389_440)
+    assert 8 * rank == plain
+
+
+def test_per_rank_flops_split_the_same_with_pinned_activations():
+    """The same step with the activations pinned at the blocks' boundaries
+    (`Hints(constrain_activations=True)`): the pins move collectives, not
+    work, so each rank counts the same FLOPs."""
+    plain, rank, _, pinned, coll = _flops()
+    assert coll > 0
+    assert pinned == rank and 8 * pinned == plain
 
 
 # one cell per block kind: attention (glm4), MLA + MoE (deepseek-v3),
