@@ -14,17 +14,22 @@ inputs. --production-mesh serves over the (16, 16) mesh
 (`launch.mesh.make_production_mesh`: each of 256 ranks, under
 `torch.distributed.run`, holds its shards of the params, placed per the
 config's sharding plan); in a smaller group it raises RuntimeError, as the
-reference does with fewer devices.
+reference does with fewer devices. `--trace PATH` serves under an
+`obs.trace.Tracer` and writes its events (the engine's and the model's
+spans, `serve.generate` at the root) to PATH as a Chrome trace, which
+chrome://tracing, https://ui.perfetto.dev and `launch.obs` read.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import build_model
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import Engine, Request
 
 
@@ -57,6 +62,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--torch-device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="write the serving spans to PATH (Chrome trace)")
     args = ap.parse_args(argv)
     mesh = None
     if args.production_mesh:
@@ -88,9 +95,19 @@ def main(argv=None):
                     max_new_tokens=args.max_new,
                     temperature=args.temperature)
             for _ in range(args.requests)]
+    tracer = obs_trace.Tracer() if args.trace else None
+    if tracer is not None:
+        obs_trace.activate(tracer)
     t0 = time.time()
-    engine.generate(reqs)
+    try:
+        engine.generate(reqs)
+    finally:
+        if tracer is not None:
+            obs_trace.deactivate(tracer)
     dt = time.time() - t0
+    if tracer is not None:
+        with open(args.trace, "w") as f:
+            json.dump(obs_trace.to_chrome_trace(tracer.events), f)
     n_tok = sum(len(r.out_tokens) for r in reqs)
     print(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s)")

@@ -21,7 +21,9 @@ sets. MLA decodes in latent space without an `attend_fn`, in both
 packages. Every product with a weight runs through `layout().project_in`
 (q, k, v; MLA's up-projections and absorbed products) or `project_out`
 (the output projection): under a mesh, on this rank's shard of the
-weight.
+weight. A decode step's cache writes (`attention_decode`, `mla_decode`)
+run under the span `attn.cache_write` (`obs.trace`; a no-op with no
+tracer).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models.common import ParamBuilder, apply_rope, layout
+from repro_torch.obs import trace as obs_trace
 
 NEG_INF = -1e30
 
@@ -402,9 +405,10 @@ def attention_decode(p, cfg, x, cache, cur_pos,
         k = apply_rope(k, pos2, cfg.rope_theta)
     slot = (cur_pos % Sc).long()
     write = layout().write_slot
-    k_cache = write(cache["k"], slot, k[:, 0])
-    v_cache = write(cache["v"], slot, v[:, 0])
-    pos_cache = write(cache["pos"], slot, cur_pos)
+    with obs_trace.span("attn.cache_write"):
+        k_cache = write(cache["k"], slot, k[:, 0])
+        v_cache = write(cache["v"], slot, v[:, 0])
+        pos_cache = write(cache["pos"], slot, cur_pos)
     if window is None:
         window = _config_window(cfg)
     fn = attend_fn or decode_attend
@@ -531,9 +535,10 @@ def mla_decode(p, cfg, x, cache, cur_pos):
         p, cfg, x, cur_pos[:, None])
     slot = (cur_pos % Sc).long()
     write = layout().write_slot
-    c_cache = write(cache["c_kv"], slot, c_kv_new[:, 0])
-    r_cache = write(cache["k_rope"], slot, k_rope_new[:, 0, 0])
-    pos_cache = write(cache["pos"], slot, cur_pos)
+    with obs_trace.span("attn.cache_write"):
+        c_cache = write(cache["c_kv"], slot, c_kv_new[:, 0])
+        r_cache = write(cache["k_rope"], slot, k_rope_new[:, 0, 0])
+        pos_cache = write(cache["pos"], slot, cur_pos)
 
     # absorb: q_eff[b,h,r] = q_nope . wk_b -> score against the latent
     q_abs = layout().project_in(q_nope[:, 0], p["wk_b"].to(x.dtype),

@@ -17,6 +17,11 @@ tensors:
 `input_specs(cfg, shape)` gives meta tensors for every input of an (arch,
 shape) cell of the dry run.
 
+Under an active `obs.trace.Tracer`, `prefill` and `decode_step` open the
+spans `model.prefill` / `model.decode_step`, with `model.embed` and
+`model.logits` inside; the blocks' spans (`transformer.py`) nest between.
+`forward` and `loss` open none.
+
 Batch keys: tokens int32 [B,S]; the encoder-decoder (whisper) adds
 encoder_embeddings [B, enc_len, frontend_dim] (the stub frontend's frames),
 the VLM frontend_embeddings [B, N_img, frontend_dim]; `loss` also reads
@@ -38,6 +43,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ParamBuilder, apply_norm, dtype_of,
                                        init_norm, layout, sinusoid_at,
                                        sinusoidal_positions, tree_map)
+from repro_torch.obs import trace as obs_trace
 
 PyTree = Any
 
@@ -237,15 +243,20 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self._embed(params, tokens)
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        extras = self._extras(params, batch)
-        clen = cache_length(cfg, max_len if max_len is not None else S + 64)
-        x, caches = tfm.stack_prefill(params, cfg, x, positions, clen, extras)
-        logits = self._logits(params, x[:, -1:])[:, 0]
-        state = {"layers": caches,
-                 "cur": torch.full((B,), S, dtype=torch.int32,
-                                   device=x.device)}
+        with obs_trace.span("model.prefill"):
+            with obs_trace.span("model.embed"):
+                x = self._embed(params, tokens)
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+            extras = self._extras(params, batch)
+            clen = cache_length(cfg,
+                                max_len if max_len is not None else S + 64)
+            x, caches = tfm.stack_prefill(params, cfg, x, positions, clen,
+                                          extras)
+            with obs_trace.span("model.logits"):
+                logits = self._logits(params, x[:, -1:])[:, 0]
+            state = {"layers": caches,
+                     "cur": torch.full((B,), S, dtype=torch.int32,
+                                       device=x.device)}
         return state, logits
 
     def decode_step(self, params, state, tokens):
@@ -253,14 +264,18 @@ class Model:
         `state["extras"]` where the state has one; the returned state drops
         it, as the reference's does."""
         cur = state["cur"]
-        x = self._embed(params, tokens[:, None], positions=cur[:, None])
-        extras = dict(state.get("extras", {}))
-        x, caches = tfm.stack_decode(params, self.cfg, x, state["layers"],
-                                     cur, extras)
-        logits = self._logits(params, x)[:, 0]
-        new_state = {k: v for k, v in state.items() if k != "extras"}
-        new_state["layers"] = caches
-        new_state["cur"] = cur + 1
+        with obs_trace.span("model.decode_step"):
+            with obs_trace.span("model.embed"):
+                x = self._embed(params, tokens[:, None],
+                                positions=cur[:, None])
+            extras = dict(state.get("extras", {}))
+            x, caches = tfm.stack_decode(params, self.cfg, x,
+                                         state["layers"], cur, extras)
+            with obs_trace.span("model.logits"):
+                logits = self._logits(params, x)[:, 0]
+            new_state = {k: v for k, v in state.items() if k != "extras"}
+            new_state["layers"] = caches
+            new_state["cur"] = cur + 1
         return new_state, logits
 
 

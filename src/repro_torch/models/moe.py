@@ -21,6 +21,10 @@ mesh's step on each rank's tokens and experts, the capacity positions
 still counted in the global token order. That buffer is already the
 placement the reference's `moe_expert_parallel` pin asks for (experts on
 "model"); the hint pins it there even where the weights are replicated.
+
+Under an active `obs.trace.Tracer`, the scatter sets its routing counts
+(`_count_routing`) on the open `block.moe` span, from the router's own
+count of assignments per expert; with no tracer it computes nothing more.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.distributed.act_sharding import current
 from repro_torch.models.common import ParamBuilder, activation, layout
+from repro_torch.obs import trace as obs_trace
 
 
 def init_moe(b: ParamBuilder, cfg):
@@ -56,6 +61,12 @@ def init_moe(b: ParamBuilder, cfg):
 def _router(p, cfg, x_flat):
     """Top-k routing in float32. Returns (weights [T,k], idx [T,k],
     aux_loss scalar)."""
+    return _route(p, cfg, x_flat)[:3]
+
+
+def _route(p, cfg, x_flat):
+    """`_router`'s (weights, idx, aux) and the assignments each expert
+    got, float32 [E]."""
     mo = cfg.moe
     # column-parallel on the router's experts dim, as the reference's
     # shardings lay it out; the softmax and top-k read every expert's logit
@@ -66,11 +77,11 @@ def _router(p, cfg, x_flat):
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balancing auxiliary loss: E * sum_e f_e * P_e
     E = mo.num_experts
-    f = layout().bincount(idx.reshape(-1), E)
-    f = f / torch.clamp(f.sum(), min=1.0)
+    counts = layout().bincount(idx.reshape(-1), E)
+    f = counts / torch.clamp(counts.sum(), min=1.0)
     P = probs.mean(dim=0)
     aux = E * torch.sum(f * P) * mo.aux_loss_coef
-    return weights, idx, aux
+    return weights, idx, aux, counts
 
 
 def _expert_ffn(p, cfg, h_in):
@@ -102,6 +113,22 @@ def capacity(cfg, tokens: int) -> int:
                                 / mo.num_experts)))
 
 
+def _count_routing(s, counts: torch.Tensor, assignments: int,
+                   C: int) -> None:
+    """The capacity dispatch's routing as attrs of span `s` where it is
+    the open `block.moe`: `assignments` (T * k), `dropped` (those past
+    their expert's C rows: sum over experts of max(0, count - C)),
+    `experts_used` (experts given an assignment) and `experts_run`
+    (experts the dispatch runs: all E). The two counts stay device
+    scalars until the trace is read."""
+    if s is None or s.name != "block.moe":
+        return
+    s.set_attr(assignments=assignments,
+               dropped=torch.clamp(counts - C, min=0).sum().to(torch.int64),
+               experts_used=(counts > 0).sum(),
+               experts_run=counts.shape[0])
+
+
 def moe_forward_scatter(p, cfg, x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y, aux_loss). Capacity-based scatter dispatch."""
@@ -110,8 +137,11 @@ def moe_forward_scatter(p, cfg, x: torch.Tensor
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    weights, idx, aux = _router(p, cfg, xf)
+    weights, idx, aux, counts = _route(p, cfg, xf)
     C = capacity(cfg, T)
+    tracer = obs_trace.current_tracer()
+    if tracer is not None:
+        _count_routing(tracer.current_span(), counts, T * mo.top_k, C)
 
     def body(xf_, w_, i_, wi_, wg_, wo_, shard_id, E_loc, offset):
         return _local_dispatch_ffn(cfg, xf_, w_, i_, wi_, wg_, wo_, shard_id,

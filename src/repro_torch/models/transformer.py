@@ -25,6 +25,14 @@ params to their TP-only placements (`act_sharding.gather_params` over
 Blocks read `extras`, as the reference's do: `kv_src` (the cross-attention
 source), `chunk` (the mLSTM chunk, default `cfg.scan_chunk`) and `moe_impl`
 (default "scatter"). `stack_forward` returns the blocks' summed aux loss.
+
+Spans (`obs.trace`; no-ops with no tracer): in `block_prefill` and
+`block_decode`, an (moe_)attention block opens `block.attention` (the
+pre-norm, the attention sub-layer with its cache write, the residual add)
+and then `block.mlp` or `block.moe` (the pre-norm and the feed-forward
+half); `stack_decode` opens `stack.restack` around the stacking of the
+groups' new caches. The other block kinds and `block_forward` (training)
+open none.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.models.common import (ParamBuilder, apply_mlp, apply_norm,
                                        init_mlp, init_norm, layout, map_axes,
                                        stack_axes as _stack_axes_tree,
                                        stack_params, use_layout)
+from repro_torch.obs import trace as obs_trace
 
 PyTree = Any
 
@@ -158,6 +167,10 @@ def init_block(b: ParamBuilder, cfg, kind: str):
         raise ValueError(kind)
 
 
+# the span of an (moe_)attention block's feed-forward half
+FFN_SPAN = {"attention": "block.mlp", "moe_attention": "block.moe"}
+
+
 def _mlp(p, cfg, x):
     return apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg.norm), cfg.act,
                      cfg.use_glu)
@@ -232,15 +245,17 @@ def block_forward(p, cfg, kind: str, x, positions, extras
 def block_prefill(p, cfg, kind: str, x, positions, cache_len: int, extras):
     """Returns (x, cache)."""
     if kind in ("attention", "moe_attention"):
-        h = apply_norm(p["ln_attn"], x, cfg.norm)
-        if cfg.mla is not None:
-            y, cache = attn.mla_prefill(p["attn"], cfg, h, positions,
-                                        cache_len)
-        else:
-            y, cache = attn.attention_prefill(p["attn"], cfg, h, positions,
-                                              cache_len)
-        x = x + y
-        return x + _ffn(p, cfg, kind, x, extras)[0], cache
+        with obs_trace.span("block.attention"):
+            h = apply_norm(p["ln_attn"], x, cfg.norm)
+            if cfg.mla is not None:
+                y, cache = attn.mla_prefill(p["attn"], cfg, h, positions,
+                                            cache_len)
+            else:
+                y, cache = attn.attention_prefill(p["attn"], cfg, h,
+                                                  positions, cache_len)
+            x = x + y
+        with obs_trace.span(FFN_SPAN[kind]):
+            return x + _ffn(p, cfg, kind, x, extras)[0], cache
     if kind == "cross_attention":
         cache = attn.cross_attention_build_cache(p["attn"], cfg,
                                                  extras["kv_src"])
@@ -283,14 +298,18 @@ def block_decode(p, cfg, kind: str, x_t, cache, cur_pos, extras):
     sequence-sharded decode, `distributed.decode_attention`)."""
     attend_fn = extras.get("attend_fn")
     if kind in ("attention", "moe_attention"):
-        h = apply_norm(p["ln_attn"], x_t, cfg.norm)
-        if cfg.mla is not None:
-            y, cache = attn.mla_decode(p["attn"], cfg, h, cache, cur_pos)
-        else:
-            y, cache = attn.attention_decode(p["attn"], cfg, h, cache,
-                                             cur_pos, attend_fn=attend_fn)
-        x_t = x_t + y
-        return x_t + _ffn(p, cfg, kind, x_t, extras)[0], cache
+        with obs_trace.span("block.attention"):
+            h = apply_norm(p["ln_attn"], x_t, cfg.norm)
+            if cfg.mla is not None:
+                y, cache = attn.mla_decode(p["attn"], cfg, h, cache,
+                                           cur_pos)
+            else:
+                y, cache = attn.attention_decode(p["attn"], cfg, h, cache,
+                                                 cur_pos,
+                                                 attend_fn=attend_fn)
+            x_t = x_t + y
+        with obs_trace.span(FFN_SPAN[kind]):
+            return x_t + _ffn(p, cfg, kind, x_t, extras)[0], cache
     if kind == "cross_attention":
         h = apply_norm(p["ln_attn"], x_t, cfg.norm)
         x_t = x_t + attn.cross_attention_decode(p["attn"], cfg, h, cache)
@@ -509,7 +528,8 @@ def stack_decode(params, cfg, x_t, caches, cur_pos, extras,
                     gp[f"b{pos}"], cfg, kind, x_t, gc[f"b{pos}"], cur_pos,
                     extras)
             per_group.append(ngc)
-        new_caches["groups"] = stack_params(per_group)
+        with obs_trace.span("stack.restack"):
+            new_caches["groups"] = stack_params(per_group)
     for i, kind in enumerate(suffix):
         x_t, new_caches["suffix"][f"l{i}"] = block_decode(
             sp["suffix"][f"l{i}"], cfg, kind, x_t,

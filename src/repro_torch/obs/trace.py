@@ -1,6 +1,6 @@
 """Trace spans: Chrome-trace/Perfetto events with cross-process context
-(a verbatim copy of `repro.obs.trace`, so traces of both packages have the
-same event format).
+(a copy of `repro.obs.trace` with the two additions below, so traces of
+both packages have the same event format).
 
 `span("tune.round", device=..., task=...)` is a context manager that — when
 a `Tracer` is active — records one Chrome-trace complete event ("ph": "X",
@@ -21,6 +21,19 @@ processes on one host), `dur` comes from a monotonic clock. The output of
 `to_chrome_trace()` loads directly in chrome://tracing or
 https://ui.perfetto.dev.
 
+Two additions of the port, for spans inside a device program:
+
+- `Tracer(annotate=f)`: every span also enters `f(name)`, a context
+  manager, for its duration. Passing `torch.profiler.record_function` (or
+  torch's cheaper `_RecordFunctionFast`) makes each span a range of a
+  running profiler, on the profiler's own clock, so the device work it
+  launches links back to it.
+- A closed span joins the tracer's events as it is; its event is built
+  when the events are read (`Tracer.events`, `to_chrome`), and there an
+  attr with `.item()` or `.tolist()` (a device scalar) becomes a number.
+  So a span costs no dict at exit, and a device scalar set as an attr
+  waits for nothing there.
+
 Span-tree wellformedness (single root, no orphans, closed statuses) is
 checked by `validate_events()` — the contract the fault-injection tests
 and the chip smoke's `sched_path` pin.
@@ -31,7 +44,8 @@ import itertools
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import (Callable, ContextManager, Dict, List, Optional,
+                    Tuple)
 
 SpanContext = Tuple[str, str]               # (trace_id, span_id)
 
@@ -43,9 +57,11 @@ def _new_trace_id() -> str:
 
 
 class Span:
-    """One open span; records its event into the owning tracer on exit."""
+    """One open span; on exit it joins its tracer's events as it is, and
+    its event dict is built when the events are read (`Tracer.events`)."""
     __slots__ = ("_tracer", "name", "trace_id", "span_id", "parent_id",
-                 "attrs", "status", "_t0_wall", "_t0_perf")
+                 "attrs", "status", "_t0_wall", "_t0_perf", "_dur_s",
+                 "_tid", "_annotation", "_open_spans")
 
     def __init__(self, tracer: "Tracer", name: str,
                  parent_id: Optional[str], attrs: Dict[str, object]):
@@ -56,6 +72,7 @@ class Span:
         self.parent_id = parent_id
         self.attrs = attrs
         self.status = "ok"
+        self._annotation = None
 
     @property
     def context(self) -> SpanContext:
@@ -66,20 +83,37 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        tracer = self._tracer
         self._t0_wall = time.time()
         self._t0_perf = time.perf_counter()
-        self._tracer._push(self)
+        self._open_spans = tracer._stack()  # the entering thread's
+        self._open_spans.append(self)
+        if tracer.annotate is not None:
+            self._annotation = tracer.annotate(self.name)
+            self._annotation.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        dur_s = time.perf_counter() - self._t0_perf
+        if self._annotation is not None:
+            self._annotation.__exit__(exc_type, exc, tb)
+        self._dur_s = time.perf_counter() - self._t0_perf
+        self._tid = threading.get_ident()
         if exc_type is not None:
             self.status = "error"
             self.attrs.setdefault("error", f"{exc_type.__name__}: {exc}")
-        self._tracer._pop(self)
-        self._tracer.add_events([make_event(
-            self.name, self.trace_id, self.span_id, self.parent_id,
-            self._t0_wall, dur_s, self.status, self.attrs)])
+        st = self._open_spans
+        if st and st[-1] is self:
+            st.pop()
+        else:
+            self._tracer._pop(self)
+        with self._tracer._lock:
+            self._tracer._events.append(self)
+
+    def event(self) -> Dict[str, object]:
+        """This closed span's Chrome-trace event (attrs made plain)."""
+        return _event(self.name, self.trace_id, self.span_id,
+                      self.parent_id, self._t0_wall, self._dur_s,
+                      self.status, self.attrs, self._tid)
 
 
 class _NoopSpan:
@@ -103,19 +137,46 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+_PLAIN = (str, int, float, bool, type(None))
+
+
+def _plain(v: object) -> object:
+    """An attr value as the event holds it: a plain value as it is, a
+    scalar with `.item()` or `.tolist()` (a device or numpy scalar) as
+    that number, anything else as its `str`."""
+    if isinstance(v, _PLAIN):
+        return v
+    for method in ("item", "tolist"):
+        f = getattr(v, method, None)
+        if f is None:
+            continue
+        try:
+            out = f()
+        except (ValueError, RuntimeError):  # not one element
+            continue
+        if isinstance(out, _PLAIN):
+            return out
+    return str(v)
+
+
+def _event(name: str, trace_id: str, span_id: str, parent_id: Optional[str],
+           t0_wall: float, dur_s: float, status: str,
+           attrs: Dict[str, object], tid: int) -> Dict[str, object]:
+    args = {k: _plain(v) for k, v in attrs.items()}
+    args.update(trace_id=trace_id, span_id=span_id, parent_id=parent_id,
+                status=status)
+    return {"name": name, "cat": "repro", "ph": "X",
+            "ts": int(t0_wall * 1e6), "dur": max(0, int(dur_s * 1e6)),
+            "pid": os.getpid(), "tid": tid % 100000, "args": args}
+
+
 def make_event(name: str, trace_id: str, span_id: str,
                parent_id: Optional[str], t0_wall: float, dur_s: float,
                status: str, attrs: Dict[str, object]) -> Dict[str, object]:
     """One Chrome-trace complete event carrying the span-tree ids in
     `args`. All values are JSON-serializable by construction."""
-    args = {k: (v if isinstance(v, (str, int, float, bool, type(None)))
-                else str(v)) for k, v in attrs.items()}
-    args.update(trace_id=trace_id, span_id=span_id, parent_id=parent_id,
-                status=status)
-    return {"name": name, "cat": "repro", "ph": "X",
-            "ts": int(t0_wall * 1e6), "dur": max(0, int(dur_s * 1e6)),
-            "pid": os.getpid(), "tid": threading.get_ident() % 100000,
-            "args": args}
+    return _event(name, trace_id, span_id, parent_id, t0_wall, dur_s,
+                  status, attrs, threading.get_ident())
 
 
 def remote_event(name: str, ctx: Optional[SpanContext], t0_wall: float,
@@ -132,11 +193,16 @@ def remote_event(name: str, ctx: Optional[SpanContext], t0_wall: float,
 
 
 class Tracer:
-    """Event sink + per-thread span stack for one trace (one campaign)."""
+    """Event sink + per-thread span stack for one trace (one campaign).
+    `annotate`, where given, is a factory name -> context manager that
+    every span enters for its duration (`torch.profiler.record_function`
+    puts the spans on a running profiler's timeline)."""
 
-    def __init__(self, trace_id: Optional[str] = None):
+    def __init__(self, trace_id: Optional[str] = None,
+                 annotate: Optional[Callable[[str], ContextManager]] = None):
         self.trace_id = trace_id or _new_trace_id()
-        self._events: List[Dict[str, object]] = []
+        self.annotate = annotate
+        self._events: List[object] = []  # event dicts and closed Spans
         self._lock = threading.Lock()
         self._tls = threading.local()
 
@@ -146,9 +212,6 @@ class Tracer:
         if st is None:
             st = self._tls.stack = []
         return st
-
-    def _push(self, s: Span) -> None:
-        self._stack().append(s)
 
     def _pop(self, s: Span) -> None:
         st = self._stack()
@@ -164,12 +227,14 @@ class Tracer:
 
     def span(self, name: str, parent: Optional[SpanContext] = None,
              **attrs) -> Span:
+        return self._open(name, parent, attrs)
+
+    def _open(self, name: str, parent: Optional[SpanContext],
+              attrs: Dict[str, object]) -> Span:
         if parent is not None:
-            parent_id: Optional[str] = parent[1]
-        else:
-            cur = self.current_span()
-            parent_id = cur.span_id if cur is not None else None
-        return Span(self, name, parent_id, attrs)
+            return Span(self, name, parent[1], attrs)
+        st = self._stack()
+        return Span(self, name, st[-1].span_id if st else None, attrs)
 
     # --- events -----------------------------------------------------------
     def add_events(self, events: List[Dict[str, object]]) -> None:
@@ -180,7 +245,10 @@ class Tracer:
 
     @property
     def events(self) -> List[Dict[str, object]]:
+        """The events; a closed span's is built here, once."""
         with self._lock:
+            self._events = [e.event() if isinstance(e, Span) else e
+                            for e in self._events]
             return list(self._events)
 
     def to_chrome(self) -> Dict[str, object]:
@@ -221,7 +289,7 @@ def span(name: str, parent: Optional[SpanContext] = None, **attrs):
     t = _active
     if t is None:
         return NOOP_SPAN
-    return t.span(name, parent=parent, **attrs)
+    return t._open(name, parent, attrs)
 
 
 def current_context() -> Optional[SpanContext]:

@@ -1,11 +1,12 @@
 """Batched serving engine: prefill + decode with KV cache (port of
 `repro.serve.engine`).
 
-Continuous-batching-lite: a fixed pool of batch slots; finished sequences
-(EOS or budget) free their slot and queued requests are admitted at the next
-prefill boundary. Per-slot positions (`cur` is per-sequence) make mixed-age
-batches correct. Prompts of a wave are left-padded with token 0 to a common
-length, with no mask, as in the reference.
+Static waves: `generate` takes its requests `batch_slots` at a time, in
+order; each wave is one prefill and then decode steps over all its rows
+until every request of the wave has finished (EOS or budget). A finished
+request's slot keeps decoding, its tokens thrown away, until the wave
+ends; the next wave starts after that. Prompts of a wave are left-padded
+with token 0 to a common length, with no mask, as in the reference.
 
 Without a mesh the engine runs where its params lie. With `mesh` (a
 `DeviceMesh`; every rank makes its own engine with the same requests) the
@@ -27,7 +28,17 @@ fewer requests than slots fails, in the reference as here (ROADMAP Queue 3,
 Observability: every wave records prefill and per-step decode wall time
 into the active metrics registry (`serve.engine.prefill_seconds`,
 `serve.engine.step_seconds`, `serve.engine.tokens`); each is timed to the
-sampled tokens' copy to the host, which waits for the card. With
+sampled tokens' copy to the host, which waits for the card.
+`serve.engine.first_token_seconds` takes one observation a request: from
+`generate`'s entry to its first token on the host, so a request of a later
+wave counts its wait behind the earlier ones. Under an active
+`obs.trace.Tracer` the engine opens the spans `serve.generate` (the root;
+`requests`), `serve.wave` (`batch`, `prompt_len`), `serve.prefill`, and
+`serve.decode_step` (`step`, `active`; the per-request update loop is its
+self time), each of the last two with a `serve.sample` around the
+argmax and the tokens' copy to the host; the model's own spans
+(`models/model.py`, `transformer.py`, `attention.py`, `moe.py`) nest
+below. With no tracer each span is a shared no-op. With
 `profile_kernels=True` the first `generate()` also runs the tuned-vs-default
 kernel probe (`kernels.profile`) at the engine's model shapes on the
 params' device, so one decode run leaves per-kernel timing histograms for
@@ -48,6 +59,7 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.train.train_loop import make_serve_prefill, make_serve_step
 
 
@@ -89,20 +101,23 @@ class Engine:
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
         from repro_torch.distributed.act_sharding import is_dtensor
-        if is_dtensor(logits):  # a mesh's logits, whole on every rank
-            logits = logits.full_tensor()
-        pick = torch.argmax(logits, dim=-1)
-        if (temps > 0).any():
-            t = torch.as_tensor(np.maximum(temps, 1e-6),
-                                device=logits.device)[:, None]
-            probs = torch.softmax(logits.float() / t, dim=-1)
-            sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-            hot = torch.as_tensor(temps > 0, device=logits.device)
-            pick = torch.where(hot, sampled, pick)
-        return pick.to(torch.int32).cpu().numpy()
+        with obs_trace.span("serve.sample"):
+            if is_dtensor(logits):  # a mesh's logits, whole on every rank
+                logits = logits.full_tensor()
+            pick = torch.argmax(logits, dim=-1)
+            if (temps > 0).any():
+                t = torch.as_tensor(np.maximum(temps, 1e-6),
+                                    device=logits.device)[:, None]
+                probs = torch.softmax(logits.float() / t, dim=-1)
+                sampled = torch.multinomial(probs, 1,
+                                            generator=self._gen)[:, 0]
+                hot = torch.as_tensor(temps > 0, device=logits.device)
+                pick = torch.where(hot, sampled, pick)
+            return pick.to(torch.int32).cpu().numpy()
 
     def generate(self, requests: Sequence[Request]) -> List[Request]:
         """Serves all requests (batched waves of up to batch_slots)."""
+        t_entry = time.perf_counter()
         if self.profile_kernels and not self._profiled:
             self._profiled = True
             from repro_torch.kernels.profile import (model_workloads,
@@ -114,55 +129,73 @@ class Engine:
         # a mesh's DTensors under no_grad: in torch 2.11, inference mode
         # fails on a DTensor's views ("Cannot set version_counter for
         # inference tensor", the stacked groups' unbind)
-        with (torch.no_grad() if self.mesh is not None
-              else torch.inference_mode()):
+        with obs_trace.span("serve.generate", requests=len(queue)), \
+                (torch.no_grad() if self.mesh is not None
+                 else torch.inference_mode()):
             while queue:
                 wave = queue[: self.batch_slots]
                 queue = queue[self.batch_slots:]
-                self._run_wave(wave)
+                self._run_wave(wave, t_entry)
         return list(requests)
 
-    def _run_wave(self, wave: List[Request]):
+    def _run_wave(self, wave: List[Request], t_entry: float):
+        """One wave; `t_entry` is the `generate` call's entry, from which
+        each request's first token is timed."""
         reg = obs_metrics.current()
         prefill_hist = reg.histogram("serve.engine.prefill_seconds")
         step_hist = reg.histogram("serve.engine.step_seconds")
+        first_hist = reg.histogram("serve.engine.first_token_seconds")
         tokens = reg.counter("serve.engine.tokens")
         B = len(wave)
         S = max(len(r.prompt) for r in wave)
-        toks = np.zeros((B, S), np.int32)
-        for i, r in enumerate(wave):  # left-pad to a common length
-            toks[i, S - len(r.prompt):] = r.prompt
-        batch = {"tokens": torch.as_tensor(toks, device=self.torch_device),
-                 **self.extra_batch}
-        t0 = time.perf_counter()
-        state, logits = self._prefill(self.params, batch)
-        temps = np.array([r.temperature for r in wave], np.float32)
-        next_tok = self._sample(logits, temps)
-        prefill_hist.observe(time.perf_counter() - t0)
-        active = np.ones(B, bool)
-        budget = np.array([r.max_new_tokens for r in wave])
-        for i, r in enumerate(wave):
-            r.out_tokens.append(int(next_tok[i]))
-        tokens.inc(B)
-        n = 1
-        while active.any() and n < budget.max():
-            t0 = time.perf_counter()
-            state, logits = self._step(
-                self.params, state,
-                torch.as_tensor(next_tok, device=self.torch_device))
-            next_tok = self._sample(logits, temps)
-            step_hist.observe(time.perf_counter() - t0)
-            tokens.inc(int(active.sum()))
-            n += 1
+        with obs_trace.span("serve.wave", batch=B, prompt_len=S):
+            toks = np.zeros((B, S), np.int32)
+            for i, r in enumerate(wave):  # left-pad to a common length
+                toks[i, S - len(r.prompt):] = r.prompt
+            temps = np.array([r.temperature for r in wave], np.float32)
+            with obs_trace.span("serve.prefill"):
+                batch = {"tokens": torch.as_tensor(
+                    toks, device=self.torch_device), **self.extra_batch}
+                t0 = time.perf_counter()
+                state, logits = self._prefill(self.params, batch)
+                next_tok = self._sample(logits, temps)
+                t1 = time.perf_counter()
+            prefill_hist.observe(t1 - t0)
+            for _ in wave:
+                first_hist.observe(t1 - t_entry)
+            active = np.ones(B, bool)
+            budget = np.array([r.max_new_tokens for r in wave])
             for i, r in enumerate(wave):
-                if not active[i]:
-                    continue
-                tok = int(next_tok[i])
-                if n <= r.max_new_tokens:
-                    r.out_tokens.append(tok)
-                if (r.eos_id is not None and tok == r.eos_id) or \
-                        len(r.out_tokens) >= r.max_new_tokens:
-                    active[i] = False
-                    r.done = True
+                r.out_tokens.append(int(next_tok[i]))
+            tokens.inc(B)
+            n = 1
+            while active.any() and n < budget.max():
+                with obs_trace.span("serve.decode_step", step=n,
+                                    active=int(active.sum())):
+                    t0 = time.perf_counter()
+                    state, logits = self._step(
+                        self.params, state,
+                        torch.as_tensor(next_tok, device=self.torch_device))
+                    next_tok = self._sample(logits, temps)
+                    step_hist.observe(time.perf_counter() - t0)
+                    tokens.inc(int(active.sum()))
+                    n += 1
+                    _take(wave, active, next_tok, n)
         for r in wave:
+            r.done = True
+
+
+def _take(wave: List[Request], active: np.ndarray, next_tok: np.ndarray,
+          n: int) -> None:
+    """Hands each active request its token of step `n` (within its
+    budget) and retires the requests that finished (EOS or budget)."""
+    for i, r in enumerate(wave):
+        if not active[i]:
+            continue
+        tok = int(next_tok[i])
+        if n <= r.max_new_tokens:
+            r.out_tokens.append(tok)
+        if (r.eos_id is not None and tok == r.eos_id) or \
+                len(r.out_tokens) >= r.max_new_tokens:
+            active[i] = False
             r.done = True
