@@ -50,6 +50,24 @@ The first three:
   hangs, transients). Traces, winners and poisoned configs must be
   identical, and while the farm is up nvidia-smi may list no worker.
 
+After the kernel checks, the prefill attention kernel
+(`kernels.flash_attention.prefill_attention`, the models' bf16 prefill on
+the card), in `prefill_phases`: `prefill_attention_check` holds it to its
+plain version over 29 cases (group ratios 1 to 16, ragged S, windows, the
+zoo's head dims, strided k and v), elementwise and by each (batch, q head,
+128-row band)'s relative error (PREFILL_TOLERANCE); one
+`prefill_attention` line each times it at the benchmark's two glm4-9b
+prefills (B 16 x S 4070 and 64 x 1018, 32 q heads over 2 kv heads, D 128,
+causal), with the band check's reading of a planted fault (one kv tile
+dropped from half the rows of two heads), and the tuning path's flash
+attention at RecurrentGemma-2B's `self_attn`, beside the plain version,
+SDPA and the bound; `prefill_route` runs one glm4-9b prefill at its
+published width (40 layers, bf16 weights drawn on the card) and asserts
+that all 40 attention calls took the kernel (`attn.prefill_route`) with 40
+launches; `prefill_mesh` runs two layers of it on a one-rank NCCL group's
+(1, 1) mesh, where the kernel runs on the DTensors' local shards
+(`layout().on_shards`), against the same prefill without the mesh.
+
 A fourth path serves the full RecurrentGemma-2B config (26 layers, d_model
 2560, vocab 256000; float32 params from seed 0, bf16 activations) with
 `serve.Engine(batch_slots=4, profile_kernels=True)`: 8 greedy requests of
@@ -594,6 +612,343 @@ def attention_check(fa, torch_device: str) -> dict:
     torch.cuda.synchronize()
     return {"cases": len(ran), "by_variant": by_variant,
             "max_abs_err": worst, "ran": ran}
+
+
+# the benchmark's two glm4-9b prefills: (name, B, S padded, H, G, D), causal
+PREFILL_SHAPES = (("glm4-9b.longprompt", 16, 4070, 32, 2, 128),
+                  ("glm4-9b.chat", 64, 1018, 32, 2, 128))
+
+
+# the prefill kernel against its plain version: the bf16 elementwise
+# tolerance, and each (batch, q head, band of PREFILL_BAND rows)'s relative
+# error. The plain version rounds P against the same running max, so the
+# two differ by the output's bf16 rounding and the order of float32 sums
+PREFILL_BAND = 128
+PREFILL_REL_TOL = 1e-2
+PREFILL_TOLERANCE = (ATTN_TOLERANCE + "; and ||err|| <= 1e-2 * ||plain|| "
+                     "over each (batch, q head, 128-row band)")
+
+
+def band_rel_err(got, want, band: int = PREFILL_BAND) -> float:
+    """The largest ||got - want|| / ||want|| over each (batch, q head,
+    band of `band` rows) of [B, S, H, D] outputs (inf where a band of
+    zeros in `want` is not zero in `got`)."""
+    import torch
+    got, want = got.float(), want.float()
+    B, S, H, _ = want.shape
+    err2 = (got - want).square().sum(dim=-1)         # [B, S, H]
+    ref2 = want.square().sum(dim=-1)
+    pad = -S % band
+
+    def per_band(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.reshape(B, (S + pad) // band, band, H).sum(dim=2)
+    err2, ref2 = per_band(err2), per_band(ref2)
+    zero = ref2 == 0
+    ratio = torch.where(zero, torch.where(err2 == 0, 0.0, float("inf")),
+                        err2 / torch.where(zero, 1.0, ref2)).sqrt()
+    return float(ratio.max())
+
+
+def check_prefill(got, want, what: str) -> tuple:
+    """The prefill kernel's output within PREFILL_TOLERANCE of its plain
+    version's; returns (max abs error, largest band relative error)."""
+    tol = ATTN_TOL["bfloat16"]
+    err = check_allclose(got, want, tol, tol, what)
+    rel = band_rel_err(got, want)
+    assert rel <= PREFILL_REL_TOL, \
+        f"{what}: a band's relative error {rel} is above {PREFILL_REL_TOL}"
+    return err, rel
+
+
+def planted_fault(q, k, v, got, heads: int = 2):
+    """`got` with a planted fault: for batch 0 and its first `heads` q
+    heads, causal attention (dense, float32) with one 128-row kv tile,
+    [128 j, 128 j + 128) for j = S // 4 // 128, dropped from every row
+    from S // 2 on, as a kernel that skipped that tile there would give."""
+    import torch
+    S, H, D = q.shape[1:]
+    k0, r0 = 128 * (S // 4 // 128), S // 2
+    pos = torch.arange(S, device=q.device)
+    keep = pos[None, :] <= pos[:, None]
+    keep &= ~((pos[:, None] >= r0) & (pos[None, :] >= k0)
+              & (pos[None, :] < k0 + 128))
+    out = got.clone()
+    for h in range(heads):
+        g = h // (H // k.shape[2])
+        s = q[0, :, h].float() @ k[0, :, g].float().T / D ** 0.5
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+        out[0, :, h] = (p @ v[0, :, g].float()).to(got.dtype)
+    return out
+
+
+def prefill_attention_check(fa, torch_device: str) -> dict:
+    """Every case: the prefill kernel (`fa.prefill_attention`, q [B, S, H,
+    D] against k, v [B, S, G, D], bf16 out) against
+    `prefill_attention_plain` on the card, within PREFILL_TOLERANCE.
+    Cases are (B, S, H, G, D, causal, window): group ratios 1, 4 and 16,
+    S not a multiple of 64, the zoo's head dims, both q tiles, and k, v
+    read through strided views."""
+    import torch
+    gen = torch.Generator(device=torch_device).manual_seed(5)
+    cases = []
+    for S in (1, 63, 130, 600):
+        for causal, window in ((True, 0), (True, 100), (False, 0)):
+            cases.append((2, S, 16, 4, 128, causal, window))
+    for H, G in ((4, 4), (16, 1), (32, 2)):
+        cases.append((1, 300, H, G, 64, True, 0))
+    for D in (64, 80, 120, 128, 192, 256):          # the LM zoo's D
+        cases.append((2, 257, 8, 2, D, True, 0))
+        cases.append((3, 512, 32, 8, D, True, 0))   # 128-row q tiles
+    cases.append((4, 1018, 32, 2, 128, True, 4096))  # a window past S
+    cases.append((2, 700, 16, 2, 128, True, 256))   # a sliding window
+    worst, worst_rel, ran = 0.0, 0.0, []
+    before = fa.prefill_attention.launches
+    for B, S, H, G, D, causal, window in cases:
+        q = torch.randn((B, S, H, D), generator=gen,
+                        device=torch_device).to(torch.bfloat16)
+        # k and v as slices of one [B, S, 2, G, D] tensor: strided views
+        kv = torch.randn((B, S, 2, G, D), generator=gen,
+                         device=torch_device).to(torch.bfloat16)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        kw = dict(causal=causal, window=window)
+        got = fa.prefill_attention(q, k, v, **kw)
+        want = fa.prefill_attention_plain(q, k, v, **kw)
+        what = f"prefill attention {(B, S, H, G, D)} {kw}"
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape, what
+        err, rel = check_prefill(got, want, what)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        p = fa.prefill_plan(B, S, H, G, D, q.dtype, causal, window)
+        ran.append(f"{B}x{S}x{H}/{G}x{D}/c{int(causal)}w{window}:"
+                   f"q{p.q_tile}kv{p.kv_tile}s{p.stages}")
+    torch.cuda.synchronize()
+    launched = fa.prefill_attention.launches - before
+    # CPU tensors take the plain version and count no launch
+    assert launched == (len(cases) if torch_device != "cpu" else 0), \
+        (launched, len(cases))
+    return {"cases": len(ran), "launches": launched, "max_abs_err": worst,
+            "max_band_rel_err": worst_rel, "ran": ran}
+
+
+def prefill_attention_timing(fa, torch_device: str) -> list:
+    """One line for each of `PREFILL_SHAPES` (causal) and one for the
+    tuning path's flash attention at RecurrentGemma-2B's `self_attn`
+    (10, 512, 256; the wgmma kernel's result and time do not depend on the
+    tuned blocks): held against the plain version (a prefill shape also
+    gives `planted_fault`'s band reading, which must fail the check and
+    does not count in `max_band_rel_err`), then the kernel's
+    `ms` and `device_ms`, the plain version's `plain_ms` and SDPA's
+    `library_ms` / `library_device_ms` (the yardstick; the port never
+    calls it: for the prefill on K and V expanded to H heads beforehand,
+    outside the timed call), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=torch_device).manual_seed(6)
+    tol = ATTN_TOL["bfloat16"]
+    lines = []
+    for name, B, S, H, G, D in PREFILL_SHAPES:
+        q = torch.randn((B, S, H, D), generator=gen,
+                        device=torch_device).to(torch.bfloat16)
+        k, v = (torch.randn((B, S, G, D), generator=gen,
+                            device=torch_device).to(torch.bfloat16)
+                for _ in range(2))
+        got = fa.prefill_attention(q, k, v, causal=True)
+        want = fa.prefill_attention_plain(q, k, v, causal=True)
+        err, rel = check_prefill(got, want, name)
+        fault = band_rel_err(planted_fault(q, k, v, got), want)
+        assert fault > PREFILL_REL_TOL, (name, fault)
+        del got, want
+        kernel = lambda: fa.prefill_attention(q, k, v, causal=True)  # noqa: E731,E501
+        plain = lambda: fa.prefill_attention_plain(q, k, v, causal=True)  # noqa: E731,E501
+        qh, kh, vh = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(H // G, dim=2),
+            v.repeat_interleave(H // G, dim=2)))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, is_causal=True)
+        flops = 4.0 * B * H * S * S * D * 0.5
+        moved = (2 * B * S * H * D + 2 * B * S * G * D) * 2
+        line = {"name": name, "shape": [B, S, H, G, D], "causal": True,
+                **dataclasses.asdict(fa.prefill_plan(B, S, H, G, D,
+                                                     q.dtype, True, 0)),
+                "host_us": host_us(kernel, 5),
+                "ms": time_ms(kernel, 5, 3),
+                "device_ms": device_ms(kernel, 5, 3),
+                "plain_ms": time_ms(plain, 1, 1),
+                "library_ms": time_ms(library, 5, 3),
+                "library_device_ms": device_ms(library, 5, 3),
+                "max_abs_err": err, "max_band_rel_err": rel,
+                "planted_fault_band_rel_err": fault}
+        line["bytes_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        line["ops_ms"] = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        line["bound_ms"], line["bound_by"] = bound_of(line["bytes_ms"],
+                                                      line["ops_ms"])
+        line["bound_share"] = line["bound_ms"] / line["device_ms"]
+        line["tflops"] = flops / line["device_ms"] / 1e9
+        lines.append(line)
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    # the tuning path's row: RecurrentGemma-2B's self_attn
+    B, S, D = 10, 512, 256
+    q, k, v = (torch.randn((B, S, D), generator=gen,
+                           device=torch_device).to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(causal=True, window=0, block_q=128, block_kv=128)
+    err = check_allclose(fa.flash_attention(q, k, v, **kw),
+                         fa.flash_attention_plain(q, k, v, **kw), tol, tol,
+                         "self_attn")
+    kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], is_causal=True)
+    line = {"name": "self_attn (tuning path)", "shape": [B, S, D],
+            "causal": True,
+            **dataclasses.asdict(fa.plan(B, S, D, q.dtype, 128, 128, True,
+                                         0)),
+            "host_us": host_us(kernel, 20), "ms": time_ms(kernel, 7, 10),
+            "device_ms": device_ms(kernel, 7, 10),
+            "plain_ms": time_ms(plain, 3, 1),
+            "library_ms": time_ms(library, 7, 10),
+            "library_device_ms": device_ms(library, 7, 10),
+            "max_abs_err": err}
+    line["bytes_ms"], line["ops_ms"] = attention_floor_ms(B, S, D,
+                                                          "bfloat16", True)
+    line["bound_ms"], line["bound_by"] = bound_of(line["bytes_ms"],
+                                                  line["ops_ms"])
+    line["bound_share"] = line["bound_ms"] / line["device_ms"]
+    lines.append(line)
+    return lines
+
+
+def glm4_prefill_setup(torch_device: str, layers: int, batch: int,
+                       prompt: int, seed: int = 0):
+    """glm4-9b at its published width cut to `layers` layers, bf16 weights
+    drawn on the device (scales around 1, the rest N(0, 0.02)) and `batch`
+    prompts of `prompt` random tokens: (cfg, model, params, tokens)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("glm4-9b")
+    if layers != cfg.num_layers:
+        cfg = cfg.replace(num_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=torch_device).manual_seed(seed)
+
+    def fill(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: fill(v, k) for k, v in tree.items()}
+        t = torch.empty(tree.shape, dtype=tree.dtype, device=torch_device)
+        if name == "scale":
+            return t.normal_(1.0, 0.1, generator=gen)
+        return t.normal_(0.0, 0.02, generator=gen)
+
+    params = fill(model.abstract_params_and_axes()[0])
+    tokens = torch.randint(1, cfg.vocab_size, (batch, prompt),
+                           generator=gen, device=torch_device,
+                           dtype=torch.int32)
+    return cfg, model, params, tokens
+
+
+def routed_prefill(prefill, params, tokens) -> dict:
+    """One prefill in a fresh metrics registry: the logits,
+    `attn.prefill_route` by route, the prefill kernel's launches and the
+    seconds."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.obs import metrics as obs_metrics
+    on_card = tokens.device.type == "cuda"
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.push_registry(reg)
+    before = fa.prefill_attention.launches
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits = prefill(params, {"tokens": tokens})
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        obs_metrics.pop_registry(reg)
+    return {"logits": logits,
+            "routes": {r: reg.counter("attn.prefill_route", route=r).value
+                       for r in ("kernel", "loop")},
+            "launches": fa.prefill_attention.launches - before,
+            "seconds": seconds}
+
+
+def prefill_route_share(torch_device: str, batch: int = 2,
+                        prompt: int = 1024) -> dict:
+    """One glm4-9b prefill at its published width (40 layers, bf16 weights
+    drawn on the card) of `batch` prompts of `prompt` tokens, in a fresh
+    metrics registry: `attn.prefill_route` by route, the prefill kernel's
+    launches, and the seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg, model, params, tokens = glm4_prefill_setup(
+        torch_device, get_config("glm4-9b").num_layers, batch, prompt)
+    run = routed_prefill(model.prefill, params, tokens)
+    routes = run["routes"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+           "prompt": prompt, "routes": routes,
+           "kernel_share": routes["kernel"] / max(1.0, sum(routes.values())),
+           "launches": run["launches"], "seconds": run["seconds"],
+           "finite": bool(torch.isfinite(run["logits"].float()).all())}
+    del params, run
+    if torch_device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_mesh(torch_device: str, tmp: str, layers: int = 2,
+                 batch: int = 2, prompt: int = 1024) -> dict:
+    """`layers` layers of glm4-9b at its published width (bf16) prefilled
+    twice from the same params and tokens: without a mesh, and through
+    `make_serve_prefill(mesh=...)` on the (1, 1) ("data", "model") mesh of
+    a one-rank process group (NCCL on the card, gloo on the CPU), whose
+    attention runs `layout().on_shards` on the DTensors' local shards. The
+    logits of both, each row's ||meshed - plain|| / ||plain|| at most
+    PREFILL_REL_TOL, and each side's routes and launches. The group is
+    left again before it returns."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.train.train_loop import make_serve_prefill
+    cfg, model, params, tokens = glm4_prefill_setup(torch_device, layers,
+                                                    batch, prompt)
+    init_process_group(torch_device, init_method="file://" + str(
+        Path(tmp) / "prefill_mesh_rendezvous"), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        dparams = sh.distribute(params, sh.param_shardings(
+            params, model.abstract_params_and_axes()[1], mesh,
+            cfg.sharding_plan))
+        plain = routed_prefill(make_serve_prefill(model), params, tokens)
+        meshed = routed_prefill(make_serve_prefill(model, mesh=mesh),
+                                dparams, tokens)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    got = meshed["logits"]
+    got = (got.full_tensor() if hasattr(got, "full_tensor") else got).float()
+    want = plain["logits"].float()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    rel = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    out = {"arch": cfg.name, "layers": layers, "batch": batch,
+           "prompt": prompt, "backend": backend,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "logits_row_rel_err": rel, "tolerance": PREFILL_REL_TOL,
+           **{f"{side}_{key}": run[key] for side, run in
+              (("plain", plain), ("meshed", meshed))
+              for key in ("routes", "launches", "seconds")}}
+    assert rel <= PREFILL_REL_TOL, out
+    del params, dparams, plain, meshed
+    if torch_device != "cpu":
+        torch.cuda.empty_cache()
+    return out
 
 
 def scan_inputs(B: int, S: int, W: int, dtype, gen, torch_device: str):
@@ -3110,7 +3465,7 @@ def build_all(build) -> dict:
         ptxas = [ln.strip() for ln in
                  lib.with_suffix(".so.log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
+                 or "Compiling entry" in ln or "arning" in ln]
         return name, {"seconds": time.perf_counter() - t0,
                       "library": str(lib.relative_to(ROOT)), "ptxas": ptxas}
 
@@ -3134,6 +3489,26 @@ def main() -> int:
         os.environ["REPRO_TORCH_TUNING_REGISTRY"] = str(
             Path(tmp) / "tuned_configs_torch.json")
         return run_phases(torch, tmp)
+
+
+def prefill_phases(torch, fa, tmp: str) -> None:
+    """The prefill attention kernel: its check over the cases, its times
+    at the benchmark's two glm4-9b prefills and the tuning path's
+    `self_attn`, the route of one glm4-9b prefill, and its kernel on a
+    one-rank mesh's shards."""
+    emit("prefill_attention_check", kernel="prefill_attention",
+         tolerance=PREFILL_TOLERANCE, **prefill_attention_check(fa, "cuda"))
+    for line in prefill_attention_timing(fa, "cuda"):
+        emit("prefill_attention", **line)
+    route = prefill_route_share("cuda")
+    emit("prefill_route", **route)
+    assert route["routes"] == {"kernel": 40, "loop": 0} and \
+        route["launches"] == 40 and route["finite"], route
+    mesh = prefill_mesh("cuda", tmp)
+    emit("prefill_mesh", **mesh)
+    for side in ("plain", "meshed"):
+        assert mesh[f"{side}_routes"] == {"kernel": 2, "loop": 0} and \
+            mesh[f"{side}_launches"] == 2, mesh
 
 
 def run_phases(torch, tmp: str) -> int:
@@ -3164,6 +3539,7 @@ def run_phases(torch, tmp: str) -> int:
          tolerance=ATTN_TOLERANCE, **attention_check(fa, "cuda"))
     emit("scan_check", kernel="rg_lru", tolerance=SCAN_TOLERANCE,
          **scan_check(lru, "cuda"))
+    prefill_phases(torch, fa, tmp)
 
     moses_cfg = MosesConfig()
     emit("cost_model_parity", **cost_model_parity("cuda", moses_cfg))

@@ -1,5 +1,17 @@
 """Attention for the model zoo (port of `repro.models.attention`).
 
+Which prefill runs where: `attention_prefill` (the dense, GQA, sliding and
+local prefill of the zoo, encoder-decoder self-attention included) runs
+the hand-written Hopper kernel `kernels.flash_attention.prefill_attention`
+for CUDA bf16 inputs with D == Dv and a shape its `prefill_plan` accepts
+(`prefill_route` decides from the inputs alone), reading q [B, S, H, D]
+and k, v [B, S, G, D] in place and writing bf16; it counts each call's
+route in the metrics counter `attn.prefill_route{route=kernel|loop}`.
+Everything else runs the chunk loop below: CPU tensors, float32 inputs,
+MLA's prefill (`_mla_attend`: D 192 != Dv 128; also the training path),
+and `attention_forward` (training and cross attention: the kernel has no
+backward).
+
 Blocked (flash-style) attention in plain tensor code over an exact static
 chunk-pair schedule: for causal / sliding-window masks only the (q-chunk,
 kv-chunk) pairs that can hold unmasked entries are visited, in the
@@ -35,7 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.common import ParamBuilder, apply_rope, layout
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 NEG_INF = -1e30
@@ -177,6 +191,43 @@ def _blocked_attention(q, k, v, kind, window, q_offset, chunk_q, chunk_kv,
     out = (os_ / denom[..., None]).to(q.dtype)
     out = out.transpose(0, 1).reshape(B, nq * cq, H, Dv)
     return out[:, :Sq]
+
+
+# ---------------------------------------------------------------------------
+# Prefill attention: the Hopper kernel where it takes the inputs, else the loop
+# ---------------------------------------------------------------------------
+
+
+def prefill_route(device_type: str, dtype, q_shape, k_shape,
+                  v_shape) -> str:
+    """"kernel" where `kernels.flash_attention.prefill_attention` takes a
+    prefill's inputs: CUDA tensors, bf16 (`dtype` is the one dtype of q, k
+    and v, None where they differ), q [B, S, H, D] against k [B, S, G, D]
+    of q's length and head dim, v's head dim D too, and a shape
+    `prefill_plan` accepts; "loop" otherwise. It reads only what it is
+    given, so a test can ask it about a card's tensors on the CPU."""
+    B, S, H, D = q_shape
+    _, Skv, G, Dk = k_shape
+    if device_type != "cuda" or Skv != S or Dk != D:
+        return "loop"
+    return ("kernel" if fa.prefill_refusal(B, S, H, G, D, v_shape[-1], dtype)
+            is None else "loop")
+
+
+def prefill_attend(q, k, v, kind: str = "causal", window: int = 0):
+    """A prefill's attention, [B, S, H, Dv]: the Hopper kernel where
+    `prefill_route` picks it (under a mesh on each rank's shards, through
+    `layout().on_shards`), else `blocked_attention`. Counts the route in
+    `attn.prefill_route`."""
+    dtype = q.dtype if q.dtype == k.dtype == v.dtype else None
+    route = prefill_route(q.device.type, dtype, tuple(q.shape),
+                          tuple(k.shape), tuple(v.shape))
+    obs_metrics.current().counter("attn.prefill_route", route=route).inc()
+    if route == "loop":
+        return blocked_attention(q, k, v, kind=kind, window=window)
+    return layout().on_shards(
+        fa.prefill_attention, q, k, v, causal=kind != "full",
+        window=window if kind == "sliding" else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +430,7 @@ def attention_prefill(p, cfg, x, positions, cache_len: int,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     kind, window = _mask_of(cfg, kind, window)
-    o = blocked_attention(q, k, v, kind=kind, window=window)
+    o = prefill_attend(q, k, v, kind=kind, window=window)
     y = _out_proj(p, o)
     take = min(cache_len, S)
     pad = cache_len - take
