@@ -68,6 +68,25 @@ launches; `prefill_mesh` runs two layers of it on a one-rank NCCL group's
 (1, 1) mesh, where the kernel runs on the DTensors' local shards
 (`layout().on_shards`), against the same prefill without the mesh.
 
+Then the decode attention kernel (`kernels.decode_attention.
+decode_attention`, the models' bf16 GQA decode on the card), in
+`decode_phases`: `decode_attention_check` holds it to its plain version
+over its cases (group ratios 1 to 20, the zoo's head dims, one and many kv
+splits, windows, a wrapped ring, strided k and v, rows with no kept slot,
+which must read exactly 0), elementwise and by each (row, q head)'s
+relative error (DECODE_TOLERANCE); one `decode_attention` line each times
+it at the benchmark's two glm4-9b decodes and recurrentgemma-2b's D 256
+local ring (DECODE_SHAPES): `device_ms` beside the bound and its share,
+`host_us` (the wrapper's host time a call), the plain version (the float32
+loop the kernel replaces) and SDPA with `enable_gqa` as a yardstick, with
+the row check's reading of a planted fault (one 16-slot tile dropped from
+every row), which must fail it; `decode_route` runs one glm4-9b decode
+step at its published width and asserts that all 40 attention calls took
+the kernel (`attn.decode_route`) with 40 launches; `decode_mesh` decodes
+two layers of it on a one-rank NCCL group's (1, 1) mesh, where the kernel
+runs on the DTensors' local shards, against the same decode without the
+mesh.
+
 A fourth path serves the full RecurrentGemma-2B config (26 layers, d_model
 2560, vocab 256000; float32 params from seed 0, bf16 activations) with
 `serve.Engine(batch_slots=4, profile_kernels=True)`: 8 greedy requests of
@@ -75,7 +94,10 @@ A fourth path serves the full RecurrentGemma-2B config (26 layers, d_model
 set to 0 before the engine is made and read after `generate`. The engine's
 kernel probe launches each kernel once per config (float32 probe inputs:
 matmul and attention `simt`, the scan `tma`); each is then held against
-its plain version at the probe's shapes. The `serve_path` line gives the
+its plain version at the probe's shapes. The model's own decode attention
+launches the decode kernel, once a local-attention layer a step: every
+`attn.decode_route` call must take it (`decode_routes`), here and in the
+zoo's serve paths below. The `serve_path` line gives the
 prefill and step seconds, tokens/s, peak memory and the data-sheet bounds;
 `serve_consistency` holds decode's logits to `forward`'s at float32
 activations for prompts of 512 and 2048 (= local_window, so the ring
@@ -946,6 +968,316 @@ def prefill_mesh(torch_device: str, tmp: str, layers: int = 2,
               for key in ("routes", "launches", "seconds")}}
     assert rel <= PREFILL_REL_TOL, out
     del params, dparams, plain, meshed
+    if torch_device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+# the benchmark's two glm4-9b decodes and the zoo's D 256 local attention:
+# (name, B, Sc cache slots, H, G, D, kept slots a row, window, ring). chat:
+# 64 rows over a 1288-slot cache with the 1018 prompt slots and 128 steps
+# kept (mid-wave); longprompt: 16 rows, 4120 slots, 4070 + 8 kept;
+# recurrentgemma-2b's local attention: a 2048-slot ring wrapped once, its
+# window 2048 (every slot kept), 10 q heads over 1 kv head
+DECODE_SHAPES = (("glm4-9b.chat", 64, 1288, 32, 2, 128, 1146, 0, False),
+                 ("glm4-9b.longprompt", 16, 4120, 32, 2, 128, 4078, 0,
+                  False),
+                 ("recurrentgemma-2b.local", 8, 2048, 10, 1, 256, 2048, 2048,
+                  True))
+# the decode kernel against its plain version: the bf16 elementwise
+# tolerance, and each (row, q head)'s ||err|| / ||plain|| (the plain version
+# rounds P against the same running maxes)
+DECODE_REL_TOL = 1e-2
+DECODE_TOLERANCE = (ATTN_TOLERANCE + "; and ||err|| <= 1e-2 * ||plain|| "
+                    "over each (row, q head)")
+
+
+def decode_inputs(B: int, Sc: int, H: int, G: int, D: int, kept: int,
+                  window: int, ring: bool, gen, torch_device: str,
+                  strided: bool = False):
+    """q [B, H, D], k and v [B, Sc, G, D] (bf16, N(0, 1)), kv_positions and
+    cur_pos of a decode: row b keeps `kept` - b slots (at least 1); a ring
+    holds positions cur - Sc + 1 .. cur at slot position % Sc, else slots
+    0 .. kept - 1 hold positions 0 .. kept - 1 and the rest are empty
+    (-1). `strided` takes k and v as slices of one tensor."""
+    import torch
+    dev = torch_device
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    if strided:
+        kv = torch.randn((B, Sc, 2, G, D), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    else:
+        k, v = (torch.randn((B, Sc, G, D), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+    slot = torch.arange(Sc, device=dev, dtype=torch.int32)
+    n = torch.clamp(kept - torch.arange(B, device=dev, dtype=torch.int32),
+                    min=1)
+    if ring:
+        cur = n + Sc - 1                       # wrapped: every slot written
+        pos = cur[:, None] - (cur[:, None] - slot[None, :]) % Sc
+    else:
+        cur = n - 1
+        pos = torch.where(slot[None, :] < n[:, None], slot[None, :], -1)
+    return q, k, v, pos.to(torch.int32).contiguous(), cur.to(torch.int32)
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over each (row, q head) of
+    [B, H, D] outputs (inf where a zero row of `want` is not zero)."""
+    import torch
+    err = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    ratio = torch.where(ref == 0, torch.where(err == 0, 0.0, float("inf")),
+                        err / torch.where(ref == 0, 1.0, ref))
+    return float(ratio.max())
+
+
+def check_decode(got, want, what: str) -> tuple:
+    """The decode kernel's output within DECODE_TOLERANCE of its plain
+    version's; returns (max abs error, largest row relative error)."""
+    tol = ATTN_TOL["bfloat16"]
+    err = check_allclose(got, want, tol, tol, what)
+    rel = row_rel_err(got, want)
+    assert rel <= DECODE_REL_TOL, \
+        f"{what}: a row's relative error {rel} is above {DECODE_REL_TOL}"
+    return err, rel
+
+
+def planted_decode_fault(kv_positions, start: int = 160):
+    """A copy of kv_positions with one 16-slot tile (slots start .. start +
+    15, kept in every row of DECODE_SHAPES) emptied: the kernel's output on
+    it must fail the row check against the plain version on the whole
+    cache."""
+    dropped = kv_positions.clone()
+    dropped[:, start:start + 16] = -1
+    return dropped
+
+
+def decode_attention_check(da, torch_device: str) -> dict:
+    """Every case: the decode kernel (`da.decode_attention`) against
+    `decode_attention_plain` on the card, within DECODE_TOLERANCE. Cases
+    are (B, Sc, H, G, D, kept, window, ring, strided): group ratios 1 to
+    20 (two 16-head tiles), the zoo's head dims, short caches, one and many
+    kv splits, windows, a wrapped ring, k and v read through strided views;
+    then a row with no kept slot, which must be exactly 0."""
+    import torch
+    gen = torch.Generator(device=torch_device).manual_seed(7)
+    cases = [(2, 1, 8, 2, 128, 1, 0, False, False),
+             (3, 37, 16, 1, 64, 37, 0, False, False),
+             (4, 300, 32, 2, 128, 250, 0, False, True),
+             (2, 300, 40, 2, 128, 300, 0, False, False),     # R = 20
+             (64, 1288, 32, 2, 128, 1146, 0, False, False),  # chat
+             (16, 4120, 32, 2, 128, 4078, 0, False, True),   # longprompt
+             (2, 2048, 10, 1, 256, 2048, 2048, True, False),
+             (3, 700, 10, 1, 256, 700, 100, True, False),    # window < Sc
+             (2, 1500, 6, 6, 64, 1500, 0, False, False)]     # whisper cross
+    for D in (64, 80, 120, 128, 192, 256):
+        cases.append((2, 513, 16, 2, D, 400, 0, False, False))
+        cases.append((1, 3000, 8, 8, D, 3000, 1000, False, False))
+    worst, worst_rel, ran = 0.0, 0.0, []
+    before = da.decode_attention.launches
+    for B, Sc, H, G, D, kept, window, ring, strided in cases:
+        q, k, v, pos, cur = decode_inputs(B, Sc, H, G, D, kept, window, ring,
+                                          gen, torch_device, strided)
+        got = da.decode_attention(q, k, v, pos, cur, window=window)
+        want = da.decode_attention_plain(q, k, v, pos, cur, window=window)
+        what = f"decode attention {(B, Sc, H, G, D)} kept {kept} " \
+            f"window {window} ring {ring}"
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape, what
+        err, rel = check_decode(got, want, what)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        p = da.decode_plan(B, Sc, H, G, D)
+        ran.append(f"{B}x{Sc}x{H}/{G}x{D}/w{window}{'r' * ring}:"
+                   f"t{p.kv_tile}s{p.stages}x{p.splits}")
+    # a row with no kept slot: its positions all -1 (and one past cur)
+    q, k, v, pos, cur = decode_inputs(3, 200, 16, 2, 128, 150, 0, False,
+                                      gen, torch_device)
+    pos[1] = -1
+    pos[2] = cur[2] + 1
+    got = da.decode_attention(q, k, v, pos, cur)
+    assert bool((got[1:].float() == 0).all()), "a row with no kept slot"
+    check_decode(got, da.decode_attention_plain(q, k, v, pos, cur),
+                 "fully masked rows")
+    if torch_device != "cpu":
+        torch.cuda.synchronize()
+    launched = da.decode_attention.launches - before
+    # CPU tensors take the plain version and count no launch
+    assert launched == (len(cases) + 1 if torch_device != "cpu" else 0), \
+        (launched, len(cases))
+    return {"cases": len(ran) + 1, "launches": launched, "max_abs_err": worst,
+            "max_row_rel_err": worst_rel, "ran": ran}
+
+
+def decode_attention_timing(da, torch_device: str) -> list:
+    """One line for each of DECODE_SHAPES: held against the plain version
+    (`max_row_rel_err`) and, with `planted_decode_fault`'s tile dropped,
+    failing that check (`planted_fault_row_rel_err`); then the kernel's
+    `ms`, `device_ms` and the wrapper's `host_us` a call, the plain
+    version's `plain_ms` (the float32 loop the kernel replaces on the
+    card), and SDPA with `enable_gqa` and a boolean mask of the kept slots
+    (`library_ms` / `library_device_ms`: the yardstick; the port never
+    calls it), beside the bound (`decode_bytes` over 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=torch_device).manual_seed(8)
+    lines = []
+    for name, B, Sc, H, G, D, kept, window, ring in DECODE_SHAPES:
+        q, k, v, pos, cur = decode_inputs(B, Sc, H, G, D, kept, window, ring,
+                                          gen, torch_device)
+        kw = dict(window=window)
+        got = da.decode_attention(q, k, v, pos, cur, **kw)
+        want = da.decode_attention_plain(q, k, v, pos, cur, **kw)
+        err, rel = check_decode(got, want, name)
+        fault = row_rel_err(da.decode_attention(
+            q, k, v, planted_decode_fault(pos), cur, **kw), want)
+        assert fault > DECODE_REL_TOL, (name, fault)
+        kernel = lambda: da.decode_attention(q, k, v, pos, cur, **kw)  # noqa: E731,E501
+        plain = lambda: da.decode_attention_plain(q, k, v, pos, cur, **kw)  # noqa: E731,E501
+        keep = (pos >= 0) & (pos <= cur[:, None])
+        if window > 0:
+            keep &= pos > cur[:, None] - window
+        mask = keep[:, None, None, :]
+        qh, kh, vh = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        kept_rows = int(keep.sum())
+        line = {"name": name, "shape": [B, Sc, H, G, D], "kept_rows":
+                kept_rows, "window": window, "ring": ring,
+                **dataclasses.asdict(da.decode_plan(B, Sc, H, G, D)),
+                "host_us": host_us(kernel, 200),
+                "ms": time_ms(kernel, 7, 20),
+                "device_ms": device_ms(kernel, 7, 20),
+                "plain_ms": time_ms(plain, 3, 3),
+                "library_ms": time_ms(library, 7, 20),
+                "library_device_ms": device_ms(library, 7, 20),
+                "max_abs_err": err, "max_row_rel_err": rel,
+                "planted_fault_row_rel_err": fault}
+        line["bound_ms"] = da.decode_bytes(B, H, G, D, kept_rows) \
+            / HBM_BYTES_PER_S * 1e3
+        line["bound_by"] = "bytes"
+        line["bound_share"] = line["bound_ms"] / line["device_ms"]
+        line["gb_per_s"] = da.decode_bytes(B, H, G, D, kept_rows) \
+            / line["device_ms"] / 1e6
+        lines.append(line)
+        del q, k, v, pos, cur, got, want, kh, vh, mask
+        if torch_device != "cpu":
+            torch.cuda.empty_cache()
+    return lines
+
+
+def routed_decode(step, params, state, tokens) -> dict:
+    """One decode step in a fresh metrics registry: the logits,
+    `attn.decode_route` by route, the decode kernel's launches and the
+    seconds."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.obs import metrics as obs_metrics
+    on_card = tokens.device.type == "cuda"
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.push_registry(reg)
+    before = da.decode_attention.launches
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits = step(params, state, tokens)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        obs_metrics.pop_registry(reg)
+    return {"logits": logits,
+            "routes": {r: reg.counter("attn.decode_route", route=r).value
+                       for r in ("kernel", "loop")},
+            "launches": da.decode_attention.launches - before,
+            "seconds": seconds}
+
+
+def decode_route_share(torch_device: str, batch: int = 2,
+                       prompt: int = 64) -> dict:
+    """glm4-9b at its published width (40 layers, bf16 weights drawn on the
+    card): one prefill of `batch` prompts of `prompt` tokens, then one
+    decode step in a fresh metrics registry: `attn.decode_route` by route,
+    the decode kernel's launches, and the seconds of the step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg, model, params, tokens = glm4_prefill_setup(
+        torch_device, get_config("glm4-9b").num_layers, batch, prompt)
+    state, logits = model.prefill(params, {"tokens": tokens},
+                                  max_len=prompt + 16)
+    nxt = logits.argmax(dim=-1).to(torch.int32)
+    run = routed_decode(model.decode_step, params, state, nxt)
+    routes = run["routes"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+           "prompt": prompt, "routes": routes,
+           "kernel_share": routes["kernel"] / max(1.0, sum(routes.values())),
+           "launches": run["launches"], "seconds": run["seconds"],
+           "finite": bool(torch.isfinite(run["logits"].float()).all())}
+    del params, state, run
+    if torch_device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_mesh(torch_device: str, tmp: str, layers: int = 2,
+                batch: int = 2, prompt: int = 1024) -> dict:
+    """`layers` layers of glm4-9b at its published width (bf16): the same
+    prompts prefilled and one token decoded twice from the same params,
+    without a mesh and through `make_serve_prefill` and
+    `make_serve_step(mesh=...)` on the (1, 1) ("data", "model") mesh of a
+    one-rank process group (NCCL on the card, gloo on the CPU), whose
+    decode attention runs `layout().on_shards` on the DTensors' local
+    shards. Both decode the token the plain prefill chose. The decode
+    logits of both, each row's ||meshed - plain|| / ||plain|| at most
+    PREFILL_REL_TOL, and each side's routes, launches and seconds. The
+    group is left again before it returns."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.train.train_loop import (make_serve_prefill,
+                                              make_serve_step)
+    cfg, model, params, tokens = glm4_prefill_setup(torch_device, layers,
+                                                    batch, prompt)
+    max_len = prompt + 16
+    init_process_group(torch_device, init_method="file://" + str(
+        Path(tmp) / "decode_mesh_rendezvous"), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        dparams = sh.distribute(params, sh.param_shardings(
+            params, model.abstract_params_and_axes()[1], mesh,
+            cfg.sharding_plan))
+        runs, nxt = {}, None
+        for side, m, p in (("plain", None, params), ("meshed", mesh,
+                                                     dparams)):
+            state, logits = make_serve_prefill(model, max_len, mesh=m)(
+                p, {"tokens": tokens})
+            if nxt is None:
+                nxt = logits.argmax(dim=-1).to(torch.int32)
+            runs[side] = routed_decode(make_serve_step(model, mesh=m), p,
+                                       state, nxt)
+            del state, logits
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    got = runs["meshed"]["logits"]
+    got = (got.full_tensor() if hasattr(got, "full_tensor") else got).float()
+    want = runs["plain"]["logits"].float()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    rel = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    out = {"arch": cfg.name, "layers": layers, "batch": batch,
+           "prompt": prompt, "backend": backend,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "logits_row_rel_err": rel, "tolerance": PREFILL_REL_TOL,
+           **{f"{side}_{key}": run[key] for side, run in runs.items()
+              for key in ("routes", "launches", "seconds")}}
+    assert rel <= PREFILL_REL_TOL, out
+    del params, dparams, runs
     if torch_device != "cpu":
         torch.cuda.empty_cache()
     return out
@@ -2054,11 +2386,13 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
     tokens each, in waves of `slots`, with the stub frontend's inputs
     (`launch.serve.extra_batch`) drawn from the same RandomState before the
     prompts, as `launch.serve` draws them; the launch counts are set to 0
-    just before the engine is made and read just after `generate`. Returns
-    (summary, model, params)."""
+    just before the engine is made and read just after `generate`, with
+    the decode attention kernel's (the model's, not the probe's) and
+    `attn.decode_route` by route. Returns (summary, model, params)."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.launch.serve import extra_batch
     from repro_torch.models import build_model
     from repro_torch.obs import metrics as obs_metrics
@@ -2084,7 +2418,8 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
     reg = obs_metrics.MetricsRegistry()
     obs_metrics.push_registry(reg)
     try:
-        reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru))
+        reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru,
+                        da.decode_attention))
         engine = Engine(model, params, max_len=prompt + new + 8,
                         batch_slots=slots, extra_batch=extra,
                         profile_kernels=True, device="tpu_v5e")
@@ -2095,7 +2430,8 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
         wall = time.perf_counter() - t0
         launches = {"matmul": mm.matmul.launches,
                     "flash_attention": fa.flash_attention.launches,
-                    "rg_lru": lru.rg_lru.launches}
+                    "rg_lru": lru.rg_lru.launches,
+                    "decode_attention": da.decode_attention.launches}
         by_variant = {"matmul": dict(mm.matmul.launches_by_variant),
                       "flash_attention": dict(
                           fa.flash_attention.launches_by_variant)}
@@ -2103,6 +2439,8 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
         obs_metrics.pop_registry(reg)
     snap = reg.snapshot()
     hists = snap["histograms"]
+    decode_routes = {r: reg.counter("attn.decode_route", route=r).value
+                     for r in ("kernel", "loop")}
     pre = reg.histogram("serve.engine.prefill_seconds")
     step = reg.histogram("serve.engine.step_seconds")
     kernel_seconds = {
@@ -2130,6 +2468,7 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
         "tokens_counter": snap["counters"]["serve.engine.tokens"],
         "kernel_seconds_counts": kernel_seconds,
         "launches": launches, "launches_by_variant": by_variant,
+        "decode_routes": decode_routes,
         **serve_bounds(cfg, params, slots, prompt, prompt + new + 8)}
     if on_card:  # init's peak (group trees stacked), then serving's
         summary["init_max_memory_allocated_gb"] = init_peak
@@ -2298,6 +2637,8 @@ def serve_consistency(cfg, params, torch_device: str, prompts, steps: int = 8
 # tokens). Width is the published one; depth is cut only where one card's
 # 80 GB forces it (None keeps the whole stack). Whisper's real decoder stays
 # below 448 tokens, so its prompts are 256.
+# the kernels the serve engine's probe (`profile_kernels=True`) launches
+PROBE_KERNELS = ("matmul", "flash_attention", "rg_lru")
 ZOO = (("xlstm-350m", None, 512),
        ("whisper-tiny", None, 256),
        ("dbrx-132b", 2, 512),
@@ -2330,8 +2671,11 @@ def zoo_serve_phase(torch_device: str, cfg, published_layers: int,
     serve["probe_check"] = serve_probe_check(cfg, torch_device)
     emit("zoo_serve", **serve)
     sv = serve["launches"]
-    if on_card:
-        assert min(sv.values()) >= 1, sv  # each kernel, in the probe
+    if on_card:  # each kernel, in the probe; every decode on the kernel
+        assert min(sv[k] for k in PROBE_KERNELS) >= 1, sv
+        assert serve["decode_routes"] == {
+            "kernel": sv["decode_attention"], "loop": 0}, \
+            serve["decode_routes"]
     assert serve["requests"] == 8 and \
         serve["tokens_per_request"] == [new], serve
     ccfg, cf = cfg, None
@@ -3511,12 +3855,33 @@ def prefill_phases(torch, fa, tmp: str) -> None:
             mesh[f"{side}_launches"] == 2, mesh
 
 
+def decode_phases(torch, da, tmp: str) -> None:
+    """The decode attention kernel: its check over the cases, its times at
+    the benchmark's two glm4-9b decodes and the zoo's D 256 local ring
+    (each with a planted fault that must fail the check), the route of one
+    glm4-9b decode step, and two layers' decode on a one-rank mesh."""
+    emit("decode_attention_check", kernel="decode_attention",
+         tolerance=DECODE_TOLERANCE, **decode_attention_check(da, "cuda"))
+    for line in decode_attention_timing(da, "cuda"):
+        emit("decode_attention", **line)
+    route = decode_route_share("cuda")
+    emit("decode_route", **route)
+    assert route["routes"] == {"kernel": 40, "loop": 0} and \
+        route["launches"] == 40 and route["finite"], route
+    mesh = decode_mesh("cuda", tmp)
+    emit("decode_mesh", **mesh)
+    for side in ("plain", "meshed"):
+        assert mesh[f"{side}_routes"] == {"kernel": 2, "loop": 0} and \
+            mesh[f"{side}_launches"] == 2, mesh
+
+
 def run_phases(torch, tmp: str) -> int:
     from repro_torch.autotune.space import config_valid
     from repro_torch.autotune.tasks import arch_tasks, resnet18_tasks
     from repro_torch.configs import get_config
     from repro_torch.configs.moses import MosesConfig
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import rg_lru as lru
@@ -3540,6 +3905,7 @@ def run_phases(torch, tmp: str) -> int:
     emit("scan_check", kernel="rg_lru", tolerance=SCAN_TOLERANCE,
          **scan_check(lru, "cuda"))
     prefill_phases(torch, fa, tmp)
+    decode_phases(torch, da, tmp)
 
     moses_cfg = MosesConfig()
     emit("cost_model_parity", **cost_model_parity("cuda", moses_cfg))
@@ -3701,7 +4067,11 @@ def run_phases(torch, tmp: str) -> int:
     serve["scan_choice"] = scan_choice("cuda", 4, 512, serve_cfg.lru_width)
     emit("serve_path", **serve)
     sv = serve["launches"]
-    assert min(sv.values()) >= 1, sv  # each kernel, in the engine's probe
+    # each kernel, in the engine's probe; the local attention's decode on
+    # the decode kernel
+    assert min(sv.values()) >= 1, sv
+    assert serve["decode_routes"] == {
+        "kernel": sv["decode_attention"], "loop": 0}, serve["decode_routes"]
     assert serve["requests"] == 8 and serve["tokens_per_request"] == [32], \
         serve
     torch.cuda.empty_cache()

@@ -9,6 +9,10 @@
                       tensor cores (csrc/flash_attention_wgmma.cu) for bf16
                       inputs, on the CUDA cores (csrc/flash_attention.cu)
                       for the rest
+  decode_attention.py the models' GQA decode attention against a bf16 KV
+                      cache (CUDA C++, csrc/decode_attention.cuh, built
+                      into the library of csrc/flash_attention_wgmma.cu);
+                      replaces no TPU kernel
   rg_lru.py           RG-LRU linear scan (CUDA C++, csrc/rg_lru.cu), the
                       port of `repro/kernels/rg_lru.py`
   csrc/hopper.cuh     mbarrier, TMA and wgmma helpers of the Hopper sources

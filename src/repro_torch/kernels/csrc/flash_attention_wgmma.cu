@@ -13,6 +13,10 @@
 //     transpose, no copy of K and V per q head); out [B, S, H, D] bf16, the
 //     out-projection's input; kv tiles of 128 rows for D <= 128, else 64.
 //
+// The end of this file also exports the models' decode attention,
+// repro_decode_attention, whose kernel is csrc/decode_attention.cuh (its
+// notes are there): one library, one nvcc, for the models' attention.
+//
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (body _fa_kernel, pallas_call at :100) for bf16 q, k, v,
 // and on the card the float32 chunk loop of
@@ -784,4 +788,63 @@ extern "C" cudaError_t repro_prefill_attention_wgmma(
   return run<__nv_bfloat16, true>(q, k, v, out, B, S, H, G, D, qs, ks, vs,
                                   os, q_tile, kv_tile, stages, causal,
                                   window, scale, ctas, stream);
+}
+
+// The models' decode attention (csrc/decode_attention.cuh), built into this
+// library so that one nvcc builds the models' attention.
+#include "decode_attention.cuh"
+
+// Launches decode attention on `stream` without synchronising, as the
+// wrapper's plan says (src/repro_torch/kernels/decode_attention.py:
+// decode_plan). The integer arguments come packed in one int64 array `a`
+// (the decode step calls this once a layer, and each argument ctypes
+// converts costs the host time): the addresses of q, k, v, kv_positions,
+// cur_pos, out, ws and counters; then B, Sc, H, G, D; the strides (in
+// elements) q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, p_b, p_s; then d_pad,
+// stages, splits, tiles_per_split and window. q [B, H, D], k and v [B, Sc,
+// G, D] bf16 with 16-byte aligned bases, the last dim contiguous and the
+// other strides multiples of 8; kv_positions int32, cur_pos [B] int32
+// contiguous; H % G == 0, D % 8 == 0, D <= d_pad (64, 128, 192 or 256);
+// `splits` kv splits of `tiles_per_split` 16-slot tiles, at most 128 a
+// split, with a float32 workspace `ws` of B * G * ceil(H / G / 16) *
+// splits * 16 * (D + 4) values and B * G * ceil(H / G / 16) int32
+// `counters`, zero, where splits > 1. out [B, H, D] bf16, contiguous.
+// Returns the first CUDA error, cudaErrorInvalidValue for arguments outside
+// that.
+extern "C" cudaError_t repro_decode_attention(const long long* a,
+                                              float scale, void* stream) {
+  decode::Params p;
+  p.q = reinterpret_cast<const __nv_bfloat16*>(a[0]);
+  p.k = reinterpret_cast<const __nv_bfloat16*>(a[1]);
+  p.v = reinterpret_cast<const __nv_bfloat16*>(a[2]);
+  p.pos = reinterpret_cast<const int*>(a[3]);
+  p.cur = reinterpret_cast<const int*>(a[4]);
+  p.out = reinterpret_cast<__nv_bfloat16*>(a[5]);
+  p.ws = reinterpret_cast<float*>(a[6]);
+  p.counters = reinterpret_cast<int*>(a[7]);
+  p.B = static_cast<int>(a[8]);
+  p.Sc = static_cast<int>(a[9]);
+  p.H = static_cast<int>(a[10]);
+  p.G = static_cast<int>(a[11]);
+  p.D = static_cast<int>(a[12]);
+  p.q_b = a[13];
+  p.q_h = a[14];
+  p.k_b = a[15];
+  p.k_s = a[16];
+  p.k_h = a[17];
+  p.v_b = a[18];
+  p.v_s = a[19];
+  p.v_h = a[20];
+  p.p_b = a[21];
+  p.p_s = a[22];
+  const int d_pad = static_cast<int>(a[23]);
+  p.stages = static_cast<int>(a[24]);
+  p.splits = static_cast<int>(a[25]);
+  p.tiles_per_split = static_cast<int>(a[26]);
+  p.window = static_cast<int>(a[27]);
+  p.scale = scale;
+  if (p.G <= 0 || p.H % p.G != 0) return cudaErrorInvalidValue;
+  p.R = p.H / p.G;
+  p.rtiles = (p.R + decode::kRows - 1) / decode::kRows;
+  return decode::run(p, d_pad, static_cast<cudaStream_t>(stream));
 }

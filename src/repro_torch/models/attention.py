@@ -12,6 +12,19 @@ MLA's prefill (`_mla_attend`: D 192 != Dv 128; also the training path),
 and `attention_forward` (training and cross attention: the kernel has no
 backward).
 
+Which decode runs where: `decode_attend` (the GQA, MQA, sliding and local
+decode of the zoo, and `cross_attention_decode` over encoder positions)
+runs the hand-written Hopper kernel `kernels.decode_attention.
+decode_attention` for CUDA bf16 inputs that `decode_route` accepts (D ==
+Dv, D % 8 == 0, D <= 256, G dividing H), reading q [B, H, D] and the k, v
+caches [B, Sc, G, D] in place and writing bf16, one launch a call; it
+counts each call's route in the metrics counter
+`attn.decode_route{route=kernel|loop}`. Everything else runs
+`decode_attend_partial` below: CPU tensors, float32 caches, and the
+sequence-sharded mesh decode (`distributed/decode_attention.py`, whose LSE
+combine needs the partials). MLA decodes in latent space (`mla_decode`)
+and takes neither.
+
 Blocked (flash-style) attention in plain tensor code over an exact static
 chunk-pair schedule: for causal / sliding-window masks only the (q-chunk,
 kv-chunk) pairs that can hold unmasked entries are visited, in the
@@ -39,6 +52,7 @@ tracer).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -47,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.common import ParamBuilder, apply_rope, layout
 from repro_torch.obs import metrics as obs_metrics
@@ -245,14 +260,51 @@ def decode_attend(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns [B, H, Dv]. The body runs through `layout().on_shards`
-    (under a mesh, on each rank's shards)."""
+    (under a mesh, on each rank's shards): the decode kernel where
+    `decode_route` picks it, else `decode_attend_partial`."""
     return layout().on_shards(_decode_attend, q, k_cache, v_cache,
                               (kv_positions, cur_pos), q_heads=1,
                               window=window, scale=scale)
 
 
+@functools.lru_cache(maxsize=1024)
+def decode_route(device_type: str, dtype, q_shape, k_shape,
+                 v_shape) -> str:
+    """"kernel" where `kernels.decode_attention.decode_attention` takes a
+    decode's inputs: CUDA tensors, bf16 (`dtype` is the one dtype of q, k
+    and v, None where they differ), q [B, H, D] against k [B, Sc, G, D] of
+    q's batch and head dim, v's head dim D too, and a shape
+    `decode_refusal` accepts; "loop" otherwise. It reads only what it is
+    given, so a test can ask it about a card's tensors on the CPU; cached,
+    as the decode step asks it once a layer."""
+    B, H, D = q_shape
+    Bk, Sc, G, Dk = k_shape
+    if device_type != "cuda" or Bk != B or Dk != D:
+        return "loop"
+    return ("kernel" if da.decode_refusal(B, Sc, H, G, D, v_shape[-1], dtype)
+            is None else "loop")
+
+
 def _decode_attend(q, k_cache, v_cache, kv_positions, cur_pos, window,
                    scale):
+    """The kernel where `decode_route` picks it, else `decode_attend_loop`;
+    counts the route in `attn.decode_route`."""
+    dtype = q.dtype if q.dtype == k_cache.dtype == v_cache.dtype else None
+    route = decode_route(q.device.type, dtype, q.shape, k_cache.shape,
+                         v_cache.shape)
+    obs_metrics.current().counter("attn.decode_route", route=route).inc()
+    if route == "kernel":
+        return da.decode_attention(q, k_cache, v_cache, kv_positions,
+                                   cur_pos, window=window, scale=scale)
+    return decode_attend_loop(q, k_cache, v_cache, kv_positions, cur_pos,
+                              window=window, scale=scale)
+
+
+def decode_attend_loop(q, k_cache, v_cache, kv_positions, cur_pos,
+                       window: int = 0, scale: Optional[float] = None):
+    """`decode_attend_partial` divided out, [B, H, Dv] in q's dtype (0 for a
+    row with no kept slot): the decode of every input `decode_route` leaves
+    to the loop, and the decode kernel's plain version."""
     o, _, l = decode_attend_partial(q, k_cache, v_cache, kv_positions,
                                     cur_pos, window=window, scale=scale)
     return (o / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
@@ -269,7 +321,8 @@ def decode_attend_partial(
 ):
     """Partial (un-normalized) decode attention for LSE combining across
     sequence shards: returns (o_partial [B,H,Dv], m [B,H], l [B,H]), all
-    float32."""
+    float32. Also the decode of every input `decode_route` leaves to the
+    loop (the CPU, float32 caches)."""
     B, H, D = q.shape
     G = k_cache.shape[2]
     R = H // G
