@@ -63,7 +63,8 @@ import torch.nn.functional as F
 from repro_torch.distributed.act_sharding import constrain
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.common import ParamBuilder, apply_rope, layout
+from repro_torch.models.common import (ParamBuilder, apply_rope, dtype_of,
+                                       layout, meta)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -494,6 +495,25 @@ def attention_prefill(p, cfg, x, positions, cache_len: int,
     return y, {"k": k_c, "v": v_c, "pos": pos_c}
 
 
+def cache_length(cfg, context_len: int) -> int:
+    """KV-cache capacity for a decode shape with `context_len` of context."""
+    if cfg.attention_kind == "sliding" and cfg.sliding_window > 0:
+        return min(context_len, cfg.sliding_window)
+    if cfg.attention_kind == "local" and cfg.local_window > 0:
+        return min(context_len, cfg.local_window)
+    return context_len
+
+
+def attention_cache_spec(cfg, batch: int, context: int):
+    """`attention_prefill`'s cache for `context` positions, as meta
+    tensors: k, v [B, cache_length, G, D] and pos [B, cache_length]."""
+    clen = cache_length(cfg, context)
+    kv, adt = (batch, clen, cfg.num_kv_heads, cfg.resolved_head_dim), \
+        dtype_of(cfg.activation_dtype)
+    return {"k": meta(kv, adt), "v": meta(kv, adt),
+            "pos": meta((batch, clen), torch.int32)}
+
+
 def attention_decode(p, cfg, x, cache, cur_pos,
                      window: Optional[int] = None, attend_fn=None):
     """One-token decode. x: [B, 1, d]; cache k/v: [B, Sc, G, D], pos [B, Sc];
@@ -544,6 +564,15 @@ def cross_attention_build_cache(p, cfg, kv_src):
     if "bv" in p:
         v = v + p["bv"].to(kv_src.dtype)
     return {"k": k, "v": v}
+
+
+def cross_attention_cache_spec(cfg, batch: int, context: int):
+    """`cross_attention_build_cache`'s cache as meta tensors: k, v [B, n,
+    G, D] over the encoder's or the frontend's n positions."""
+    n = cfg.encoder_seq_len or cfg.num_frontend_tokens
+    kv, adt = (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim), \
+        dtype_of(cfg.activation_dtype)
+    return {"k": meta(kv, adt), "v": meta(kv, adt)}
 
 
 # ---------------------------------------------------------------------------
@@ -627,6 +656,17 @@ def mla_prefill(p, cfg, x, positions, cache_len: int):
     pos_c = F.pad(positions[S - take:], (0, pad), value=-1)
     pos_c = pos_c.to(torch.int32).expand(B, cache_len).contiguous()
     return y, {"c_kv": c, "k_rope": kr, "pos": pos_c}
+
+
+def mla_cache_spec(cfg, batch: int, context: int):
+    """`mla_prefill`'s latent cache for `context` positions, as meta
+    tensors: c_kv [B, cache_length, kv_lora_rank], k_rope [B, cache_length,
+    qk_rope_head_dim], pos [B, cache_length]."""
+    m, clen = cfg.mla, cache_length(cfg, context)
+    adt = dtype_of(cfg.activation_dtype)
+    return {"c_kv": meta((batch, clen, m.kv_lora_rank), adt),
+            "k_rope": meta((batch, clen, m.qk_rope_head_dim), adt),
+            "pos": meta((batch, clen), torch.int32)}
 
 
 def mla_decode(p, cfg, x, cache, cur_pos):

@@ -65,6 +65,11 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
+def meta(shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    """A meta tensor: a shape and a dtype, nothing allocated."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def tree_leaves(tree: PyTree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -405,11 +410,11 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def init_mlp(b: ParamBuilder, d_model: int, d_ff: int, use_glu: bool,
              in_axis: str = "embed", hidden_axis: str = "mlp"):
-    c = b.child("mlp")
-    init_dense(c, "wi", d_model, d_ff, in_axis, hidden_axis)
+    """The MLP's params (wi, wg with GLU, wo) in `b`."""
+    init_dense(b, "wi", d_model, d_ff, in_axis, hidden_axis)
     if use_glu:
-        init_dense(c, "wg", d_model, d_ff, in_axis, hidden_axis)
-    init_dense(c, "wo", d_ff, d_model, hidden_axis, in_axis)
+        init_dense(b, "wg", d_model, d_ff, in_axis, hidden_axis)
+    init_dense(b, "wo", d_ff, d_model, hidden_axis, in_axis)
 
 
 def apply_mlp(p: PyTree, x: torch.Tensor, act_name: str,

@@ -40,21 +40,13 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.placement import TorchDevice, resolve_torch_device
 from repro_torch.distributed import act_sharding
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import cache_length
 from repro_torch.models.common import (ParamBuilder, apply_norm, dtype_of,
-                                       init_norm, layout, sinusoid_at,
-                                       sinusoidal_positions, tree_map)
+                                       init_norm, layout, meta, sinusoid_at,
+                                       sinusoidal_positions)
 from repro_torch.obs import trace as obs_trace
 
 PyTree = Any
-
-
-def cache_length(cfg: ModelConfig, context_len: int) -> int:
-    """KV-cache capacity for a decode shape with `context_len` of context."""
-    if cfg.attention_kind == "sliding" and cfg.sliding_window > 0:
-        return min(context_len, cfg.sliding_window)
-    if cfg.attention_kind == "local" and cfg.local_window > 0:
-        return min(context_len, cfg.local_window)
-    return context_len
 
 
 def _cast_tree(tree: dict, float32_read: dict, dtype: torch.dtype) -> dict:
@@ -284,84 +276,9 @@ class Model:
         """A tree of meta tensors matching what prefill(context_len)
         returns (shapes and dtypes, nothing allocated)."""
         cfg = self.cfg
-        clen = cache_length(cfg, context_len)
-        adt = dtype_of(cfg.activation_dtype)
-        f32, i32 = torch.float32, torch.int32
-
-        def spec(shape, dtype=adt):
-            return torch.empty(shape, dtype=dtype, device="meta")
-
-        def attn_cache():
-            hd = cfg.resolved_head_dim
-            if cfg.mla is not None:
-                m = cfg.mla
-                return {"c_kv": spec((batch_size, clen, m.kv_lora_rank)),
-                        "k_rope": spec((batch_size, clen,
-                                        m.qk_rope_head_dim)),
-                        "pos": spec((batch_size, clen), i32)}
-            G = cfg.num_kv_heads
-            return {"k": spec((batch_size, clen, G, hd)),
-                    "v": spec((batch_size, clen, G, hd)),
-                    "pos": spec((batch_size, clen), i32)}
-
-        def local_attn_cache():
-            hd = cfg.resolved_head_dim
-            G = cfg.num_kv_heads
-            w = min(cfg.local_window, context_len)
-            return {"k": spec((batch_size, w, G, hd)),
-                    "v": spec((batch_size, w, G, hd)),
-                    "pos": spec((batch_size, w), i32)}
-
-        def cross_cache():
-            hd = cfg.resolved_head_dim
-            G = cfg.num_kv_heads
-            n = cfg.encoder_seq_len or cfg.num_frontend_tokens
-            return {"k": spec((batch_size, n, G, hd)),
-                    "v": spec((batch_size, n, G, hd))}
-
-        def block_cache(kind: str):
-            if kind in ("attention", "moe_attention"):
-                return local_attn_cache() if cfg.attention_kind == "local" \
-                    else attn_cache()
-            if kind == "cross_attention":
-                return cross_cache()
-            if kind == "encdec_attention":
-                return {"self": attn_cache(), "cross": cross_cache()}
-            cw = cfg.conv_width
-            if kind == "recurrent":
-                w = cfg.lru_width or cfg.d_model
-                return {"h": spec((batch_size, w), f32),
-                        "conv": spec((batch_size, cw - 1, w))}
-            if kind == "mlstm":
-                inner = 2 * cfg.d_model
-                nh = cfg.num_heads
-                D = inner // nh
-                return {"C": spec((batch_size, nh, D, D), f32),
-                        "n": spec((batch_size, nh, D), f32),
-                        "m": spec((batch_size, nh), f32),
-                        "conv": spec((batch_size, cw - 1, inner))}
-            if kind == "slstm":
-                d = cfg.d_model
-                return {"c": spec((batch_size, d), f32),
-                        "n": spec((batch_size, d), f32),
-                        "h": spec((batch_size, d), f32),
-                        "m": spec((batch_size, d), f32),
-                        "conv": spec((batch_size, cw - 1, d))}
-            raise ValueError(kind)
-
-        prefix, unit, n_groups, suffix = tfm.stack_plan(cfg)
-        caches: dict = {"prefix": {}, "suffix": {}}
-        for i, kind in enumerate(prefix):
-            caches["prefix"][f"l{i}"] = block_cache(kind)
-        if n_groups:
-            caches["groups"] = {
-                f"b{pos}": tree_map(
-                    lambda s: spec((n_groups, *s.shape), s.dtype),
-                    block_cache(kind))
-                for pos, kind in enumerate(unit)}
-        for i, kind in enumerate(suffix):
-            caches["suffix"][f"l{i}"] = block_cache(kind)
-        return {"layers": caches, "cur": spec((batch_size,), i32)}
+        caches = tfm.walk_stack(cfg, lambda kind, p, c: tfm.block_cache_spec(
+            cfg, kind, batch_size, context_len))
+        return {"layers": caches, "cur": meta((batch_size,), torch.int32)}
 
 
 @functools.lru_cache(maxsize=64)
@@ -392,27 +309,24 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     adt = dtype_of(cfg.activation_dtype)
     model = build_model(cfg)
 
-    def spec(shp, dtype):
-        return torch.empty(shp, dtype=dtype, device="meta")
-
     def frontend(batch_keys: Dict[str, Any]):
         if cfg.is_encoder_decoder:
-            batch_keys["encoder_embeddings"] = spec(
+            batch_keys["encoder_embeddings"] = meta(
                 (B, cfg.encoder_seq_len, cfg.frontend_dim or cfg.d_model),
                 adt)
         elif cfg.cross_attn_every > 0:
-            batch_keys["frontend_embeddings"] = spec(
+            batch_keys["frontend_embeddings"] = meta(
                 (B, cfg.num_frontend_tokens, cfg.frontend_dim or cfg.d_model),
                 adt)
         return batch_keys
 
     if shape.kind == "train":
-        return {"batch": frontend({"tokens": spec((B, S), i32),
-                                   "targets": spec((B, S), i32)})}
+        return {"batch": frontend({"tokens": meta((B, S), i32),
+                                   "targets": meta((B, S), i32)})}
     if shape.kind == "prefill":
-        return {"batch": frontend({"tokens": spec((B, S), i32)})}
+        return {"batch": frontend({"tokens": meta((B, S), i32)})}
     if shape.kind == "decode":
         # the cross caches are inside the layer caches
         return {"state": model.init_decode_state_specs(B, S),
-                "tokens": spec((B,), i32)}
+                "tokens": meta((B,), i32)}
     raise ValueError(shape.kind)

@@ -39,9 +39,13 @@ from repro_torch.obs import trace as obs_trace
 
 
 def init_moe(b: ParamBuilder, cfg):
+    """The MoE layer's params under b's child "moe"."""
+    init_moe_params(b.child("moe"), cfg)
+
+
+def init_moe_params(c: ParamBuilder, cfg):
     mo = cfg.moe
     d = cfg.d_model
-    c = b.child("moe")
     c.param("router", (d, mo.num_experts), ("embed", "experts"),
             scale=1.0 / math.sqrt(d), reads_float32=True)
     ff = mo.d_ff_expert

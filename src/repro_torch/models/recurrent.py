@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
-from repro_torch.models.common import ParamBuilder, gelu, layout
+from repro_torch.models.common import (ParamBuilder, dtype_of, gelu, layout,
+                                       meta)
 
 LRU_C = 8.0
 
@@ -162,6 +163,14 @@ def recurrent_block_prefill(p, cfg, x: torch.Tensor):
                             device=x.device),
     }
     return y, state
+
+
+def recurrent_block_cache_spec(cfg, batch: int, context: int):
+    """`recurrent_block_prefill`'s state as meta tensors (any context)."""
+    w = cfg.lru_width or cfg.d_model
+    return {"h": meta((batch, w), torch.float32),
+            "conv": meta((batch, cfg.conv_width - 1, w),
+                         dtype_of(cfg.activation_dtype))}
 
 
 def recurrent_block_decode(p, cfg, x_t: torch.Tensor, state):

@@ -13,8 +13,13 @@ A stack is factored as (prefix, repeated group, suffix):
 With scan_layers the repeated group's params are stacked along a leading
 axis (`groups`), as the reference stacks them for `jax.lax.scan`; here a
 Python loop walks the group index, and the per-group caches are stacked
-the same way. `kinds_override` gives a plain list of block kinds in place
-of the config's plan (the whisper encoder).
+the same way (`walk_stack`, the walk `stack_prefill`, `stack_decode` and
+the decode-state specs share). `kinds_override` gives `init_stack` and
+`stack_forward` a plain list of block kinds in place of the config's plan
+(the whisper encoder).
+
+`BLOCKS` defines each block kind once, as residual steps (`Step`): a
+pre-norm, a sub-layer (`SubLayer`) and a residual add.
 
 `stack_forward` runs each prefix and suffix block, and each group, under
 `cfg.remat_policy` (torch.utils.checkpoint in place of jax.checkpoint).
@@ -27,16 +32,16 @@ source), `chunk` (the mLSTM chunk, default `cfg.scan_chunk`) and `moe_impl`
 (default "scatter"). `stack_forward` returns the blocks' summed aux loss.
 
 Spans (`obs.trace`; no-ops with no tracer): in `block_prefill` and
-`block_decode`, an (moe_)attention block opens `block.attention` (the
-pre-norm, the attention sub-layer with its cache write, the residual add)
-and then `block.mlp` or `block.moe` (the pre-norm and the feed-forward
-half); `stack_decode` opens `stack.restack` around the stacking of the
-groups' new caches. The other block kinds and `block_forward` (training)
-open none.
+`block_decode`, an (moe_)attention block's steps open `block.attention`
+(the pre-norm, the attention sub-layer with its cache write, the residual
+add) and then `block.mlp` or `block.moe` (the pre-norm and the feed-forward
+half); `walk_stack` opens `stack.restack` around the stacking of a decode
+step's new group caches. The other block kinds and `block_forward`
+(training) open none.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import functools
 
@@ -117,228 +122,212 @@ def stack_plan(cfg) -> Tuple[List[str], Tuple[str, ...], int, List[str]]:
 
 
 # ---------------------------------------------------------------------------
-# Single block init / forward / prefill / decode
+# Block kinds: residual steps over sub-layers
 # ---------------------------------------------------------------------------
 
 
-def init_block(b: ParamBuilder, cfg, kind: str):
-    if kind in ("attention", "moe_attention"):
-        init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
-        a = b.child("attn")
+class SubLayer(NamedTuple):
+    """What a residual step runs on its normed input h. init(b, cfg) puts
+    its params in b; forward(p, cfg, h, positions, extras) -> (y, aux or
+    None); prefill(p, cfg, h, positions, cache_len, extras) -> (y, cache);
+    decode(p, cfg, h, cache, cur_pos, extras) -> (y, new cache);
+    cache_spec(cfg, batch, context) -> its cache as meta tensors (beside
+    the prefill that writes it), None where it keeps no cache."""
+    init: Callable
+    forward: Callable
+    prefill: Callable
+    decode: Callable
+    cache_spec: Optional[Callable]
+
+
+def _self_attention(mask: Optional[str]) -> SubLayer:
+    """GQA self-attention (MLA under `cfg.mla`) under the config's mask
+    (mask None) or `mask`."""
+    def init(b, cfg):
+        (attn.init_attention if cfg.mla is None else attn.init_mla)(b, cfg)
+
+    def forward(p, cfg, h, positions, extras):
         if cfg.mla is not None:
-            attn.init_mla(a, cfg)
-        else:
-            attn.init_attention(a, cfg)
-        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
-        if kind == "moe_attention":
-            moe_mod.init_moe(b, cfg)
-        else:
-            init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
-    elif kind == "cross_attention":
-        init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
-        attn.init_attention(b.child("attn"), cfg, cross=True)
-        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
-        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
-        b.param("gate_mlp", (1,), (None,), init="zeros", dtype=torch.float32)
-    elif kind == "encdec_attention":
-        init_norm(b, "ln_self", cfg.d_model, cfg.norm)
-        attn.init_attention(b.child("self_attn"), cfg)
-        init_norm(b, "ln_cross", cfg.d_model, cfg.norm)
-        attn.init_attention(b.child("cross_attn"), cfg, cross=True)
-        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
-        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
-    elif kind == "encoder_attention":
-        init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
-        attn.init_attention(b.child("attn"), cfg)
-        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
-        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
-    elif kind == "recurrent":
-        init_norm(b, "ln_rec", cfg.d_model, cfg.norm)
-        rec_mod.init_recurrent_block(b.child("rec"), cfg)
-        init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
-        init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu)
-    elif kind == "mlstm":
-        init_norm(b, "ln", cfg.d_model, cfg.norm)
-        xlstm_mod.init_mlstm_block(b.child("cell"), cfg)
-    elif kind == "slstm":
-        init_norm(b, "ln", cfg.d_model, cfg.norm)
-        xlstm_mod.init_slstm_block(b.child("cell"), cfg)
-    else:
-        raise ValueError(kind)
+            return attn.mla_forward(p, cfg, h, positions), None
+        return attn.attention_forward(p, cfg, h, positions, kind=mask), None
+
+    def prefill(p, cfg, h, positions, cache_len, extras):
+        if cfg.mla is not None:
+            return attn.mla_prefill(p, cfg, h, positions, cache_len)
+        return attn.attention_prefill(p, cfg, h, positions, cache_len,
+                                      kind=mask)
+
+    def decode(p, cfg, h, cache, cur_pos, extras):
+        if cfg.mla is not None:
+            return attn.mla_decode(p, cfg, h, cache, cur_pos)
+        return attn.attention_decode(p, cfg, h, cache, cur_pos,
+                                     attend_fn=extras.get("attend_fn"))
+
+    def cache_spec(cfg, batch, context):
+        return (attn.attention_cache_spec if cfg.mla is None
+                else attn.mla_cache_spec)(cfg, batch, context)
+    return SubLayer(init, forward, prefill, decode, cache_spec)
 
 
-# the span of an (moe_)attention block's feed-forward half
-FFN_SPAN = {"attention": "block.mlp", "moe_attention": "block.moe"}
+def _cross_forward(p, cfg, h, positions, extras):
+    return attn.attention_forward(p, cfg, h, positions, kind="full",
+                                  kv_src=extras["kv_src"]), None
 
 
-def _mlp(p, cfg, x):
-    return apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg.norm), cfg.act,
-                     cfg.use_glu)
+def _cross_prefill(p, cfg, h, positions, cache_len, extras):
+    cache = attn.cross_attention_build_cache(p, cfg, extras["kv_src"])
+    return _cross_forward(p, cfg, h, positions, extras)[0], cache
 
 
-def _ffn(p, cfg, kind: str, x, extras):
-    """The feed-forward half of an (moe_)attention block: (y, aux)."""
-    h = apply_norm(p["ln_mlp"], x, cfg.norm)
-    if kind == "moe_attention":
-        return moe_mod.moe_forward(p["moe"], cfg, h,
-                                   extras.get("moe_impl", "scatter"))
-    return apply_mlp(p["mlp"], h, cfg.act, cfg.use_glu), None
+def _mlp(p, cfg, h, *_):
+    return apply_mlp(p, h, cfg.act, cfg.use_glu), None
 
 
-def _gated_mlp(p, cfg, x):
-    """The cross_attention block's MLP residual, tanh-gated (the tanh in
-    float32, cast to x's dtype)."""
-    return x + _mlp(p, cfg, x) * torch.tanh(p["gate_mlp"]).to(x.dtype)
+def _moe(p, cfg, h, *args):
+    """The MoE layer at any of the three calls (extras come last)."""
+    return moe_mod.moe_forward(p, cfg, h, args[-1].get("moe_impl", "scatter"))
 
 
 def _chunk(cfg, extras) -> int:
     return extras.get("chunk", cfg.scan_chunk)
 
 
+ATTENTION = _self_attention(None)
+CROSS_ATTENTION = SubLayer(
+    lambda b, cfg: attn.init_attention(b, cfg, cross=True), _cross_forward,
+    _cross_prefill,
+    lambda p, cfg, h, c, *_: (attn.cross_attention_decode(p, cfg, h, c), c),
+    attn.cross_attention_cache_spec)
+RECURRENT = SubLayer(
+    rec_mod.init_recurrent_block,
+    lambda p, cfg, h, *_: (rec_mod.recurrent_block_forward(p, cfg, h), None),
+    lambda p, cfg, h, *_: rec_mod.recurrent_block_prefill(p, cfg, h),
+    lambda p, cfg, h, c, *_: rec_mod.recurrent_block_decode(p, cfg, h, c),
+    rec_mod.recurrent_block_cache_spec)
+MLSTM = SubLayer(
+    xlstm_mod.init_mlstm_block,
+    lambda p, cfg, h, positions, extras:
+        (xlstm_mod.mlstm_block_forward(p, cfg, h, _chunk(cfg, extras)), None),
+    lambda p, cfg, h, positions, cache_len, extras:
+        xlstm_mod.mlstm_block_prefill(p, cfg, h, _chunk(cfg, extras)),
+    lambda p, cfg, h, c, *_: xlstm_mod.mlstm_block_decode(p, cfg, h, c),
+    xlstm_mod.mlstm_block_cache_spec)
+SLSTM = SubLayer(
+    xlstm_mod.init_slstm_block,
+    lambda p, cfg, h, *_: (xlstm_mod.slstm_block_forward(p, cfg, h), None),
+    lambda p, cfg, h, *_: xlstm_mod.slstm_block_prefill(p, cfg, h),
+    lambda p, cfg, h, c, *_: xlstm_mod.slstm_block_decode(p, cfg, h, c),
+    xlstm_mod.slstm_block_cache_spec)
+MLP = SubLayer(lambda b, cfg: init_mlp(b, cfg.d_model, cfg.d_ff, cfg.use_glu),
+               _mlp, _mlp, _mlp, None)
+MOE = SubLayer(moe_mod.init_moe_params, _moe, _moe, _moe, None)
+
+
+class Step(NamedTuple):
+    """One residual step of a block: x + sub(norm(x)), its output scaled
+    by tanh(p[gate]) (in float32, cast to x's dtype) where a gate is
+    named. `norm` and `key` name the block's children holding the
+    pre-norm's and the sub-layer's params; `span` the span the step runs
+    under (None: none); `cache` the step's entry in the block's cache,
+    None where the sub-layer's cache is the block's whole cache."""
+    norm: str
+    key: str
+    sub: SubLayer
+    span: Optional[str] = None
+    gate: Optional[str] = None
+    cache: Optional[str] = None
+
+
+BLOCKS: Dict[str, Tuple[Step, ...]] = {
+    "attention": (Step("ln_attn", "attn", ATTENTION, "block.attention"),
+                  Step("ln_mlp", "mlp", MLP, "block.mlp")),
+    "moe_attention": (Step("ln_attn", "attn", ATTENTION, "block.attention"),
+                      Step("ln_mlp", "moe", MOE, "block.moe")),
+    "cross_attention": (Step("ln_attn", "attn", CROSS_ATTENTION),
+                        Step("ln_mlp", "mlp", MLP, gate="gate_mlp")),
+    "encdec_attention": (
+        Step("ln_self", "self_attn", _self_attention("causal"),
+             cache="self"),
+        Step("ln_cross", "cross_attn", CROSS_ATTENTION, cache="cross"),
+        Step("ln_mlp", "mlp", MLP)),
+    "encoder_attention": (Step("ln_attn", "attn", _self_attention("full")),
+                          Step("ln_mlp", "mlp", MLP)),
+    "recurrent": (Step("ln_rec", "rec", RECURRENT),
+                  Step("ln_mlp", "mlp", MLP)),
+    "mlstm": (Step("ln", "cell", MLSTM),),
+    "slstm": (Step("ln", "cell", SLSTM),),
+}
+
+
+def _gated(gate, y, x):
+    """y scaled by tanh(gate), the tanh in float32 cast to x's dtype."""
+    return y * torch.tanh(gate).to(x.dtype)
+
+
+def _with_cache(cache, slot: Optional[str], c):
+    """The block's cache with a stateful step's cache c in it at `slot`
+    (`Step.cache`; None: c is the block's whole cache)."""
+    return c if slot is None else {**(cache or {}), slot: c}
+
+
+def init_block(b: ParamBuilder, cfg, kind: str):
+    for norm, key, sub, _, gate, _ in BLOCKS[kind]:
+        init_norm(b, norm, cfg.d_model, cfg.norm)
+        sub.init(b.child(key), cfg)
+        if gate is not None:
+            b.param(gate, (1,), (None,), init="zeros", dtype=torch.float32)
+
+
 def block_forward(p, cfg, kind: str, x, positions, extras
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, aux_loss); aux is None for a block without one."""
     aux = None
-    if kind in ("attention", "moe_attention"):
-        h = apply_norm(p["ln_attn"], x, cfg.norm)
-        if cfg.mla is not None:
-            y = attn.mla_forward(p["attn"], cfg, h, positions)
-        else:
-            y = attn.attention_forward(p["attn"], cfg, h, positions)
-        x = x + y
-        y, aux = _ffn(p, cfg, kind, x, extras)
-        x = x + y
-    elif kind == "cross_attention":
-        h = apply_norm(p["ln_attn"], x, cfg.norm)
-        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
-                                       kind="full", kv_src=extras["kv_src"])
-        x = _gated_mlp(p, cfg, x)
-    elif kind == "encdec_attention":
-        h = apply_norm(p["ln_self"], x, cfg.norm)
-        x = x + attn.attention_forward(p["self_attn"], cfg, h, positions,
-                                       kind="causal")
-        h = apply_norm(p["ln_cross"], x, cfg.norm)
-        x = x + attn.attention_forward(p["cross_attn"], cfg, h, positions,
-                                       kind="full", kv_src=extras["kv_src"])
-        x = x + _mlp(p, cfg, x)
-    elif kind == "encoder_attention":
-        h = apply_norm(p["ln_attn"], x, cfg.norm)
-        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
-                                       kind="full")
-        x = x + _mlp(p, cfg, x)
-    elif kind == "recurrent":
-        h = apply_norm(p["ln_rec"], x, cfg.norm)
-        x = x + rec_mod.recurrent_block_forward(p["rec"], cfg, h)
-        x = x + _mlp(p, cfg, x)
-    elif kind == "mlstm":
-        h = apply_norm(p["ln"], x, cfg.norm)
-        x = x + xlstm_mod.mlstm_block_forward(p["cell"], cfg, h,
-                                              _chunk(cfg, extras))
-    elif kind == "slstm":
-        h = apply_norm(p["ln"], x, cfg.norm)
-        x = x + xlstm_mod.slstm_block_forward(p["cell"], cfg, h)
-    else:
-        raise ValueError(kind)
+    for norm, key, sub, _, gate, _ in BLOCKS[kind]:
+        y, a = sub.forward(p[key], cfg, apply_norm(p[norm], x, cfg.norm),
+                           positions, extras)
+        x = x + (y if gate is None else _gated(p[gate], y, x))
+        aux = aux if a is None else a
     return x, aux
 
 
 def block_prefill(p, cfg, kind: str, x, positions, cache_len: int, extras):
     """Returns (x, cache)."""
-    if kind in ("attention", "moe_attention"):
-        with obs_trace.span("block.attention"):
-            h = apply_norm(p["ln_attn"], x, cfg.norm)
-            if cfg.mla is not None:
-                y, cache = attn.mla_prefill(p["attn"], cfg, h, positions,
-                                            cache_len)
-            else:
-                y, cache = attn.attention_prefill(p["attn"], cfg, h,
-                                                  positions, cache_len)
-            x = x + y
-        with obs_trace.span(FFN_SPAN[kind]):
-            return x + _ffn(p, cfg, kind, x, extras)[0], cache
-    if kind == "cross_attention":
-        cache = attn.cross_attention_build_cache(p["attn"], cfg,
-                                                 extras["kv_src"])
-        h = apply_norm(p["ln_attn"], x, cfg.norm)
-        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
-                                       kind="full", kv_src=extras["kv_src"])
-        return _gated_mlp(p, cfg, x), cache
-    if kind == "encdec_attention":
-        h = apply_norm(p["ln_self"], x, cfg.norm)
-        y, self_cache = attn.attention_prefill(p["self_attn"], cfg, h,
-                                               positions, cache_len,
-                                               kind="causal")
-        x = x + y
-        cross_cache = attn.cross_attention_build_cache(
-            p["cross_attn"], cfg, extras["kv_src"])
-        h = apply_norm(p["ln_cross"], x, cfg.norm)
-        x = x + attn.attention_forward(p["cross_attn"], cfg, h, positions,
-                                       kind="full", kv_src=extras["kv_src"])
-        return x + _mlp(p, cfg, x), {"self": self_cache, "cross": cross_cache}
-    if kind == "recurrent":
-        h = apply_norm(p["ln_rec"], x, cfg.norm)
-        y, state = rec_mod.recurrent_block_prefill(p["rec"], cfg, h)
-        x = x + y
-        return x + _mlp(p, cfg, x), state
-    if kind == "mlstm":
-        h = apply_norm(p["ln"], x, cfg.norm)
-        y, state = xlstm_mod.mlstm_block_prefill(p["cell"], cfg, h,
-                                                 _chunk(cfg, extras))
-        return x + y, state
-    if kind == "slstm":
-        h = apply_norm(p["ln"], x, cfg.norm)
-        y, state = xlstm_mod.slstm_block_prefill(p["cell"], cfg, h)
-        return x + y, state
-    raise ValueError(kind)
+    cache = None
+    for norm, key, sub, span, gate, slot in BLOCKS[kind]:
+        with obs_trace.span(span) if span else obs_trace.NOOP_SPAN:
+            y, c = sub.prefill(p[key], cfg, apply_norm(p[norm], x, cfg.norm),
+                               positions, cache_len, extras)
+            x = x + (y if gate is None else _gated(p[gate], y, x))
+        if sub.cache_spec is not None:
+            cache = _with_cache(cache, slot, c)
+    return x, cache
 
 
 def block_decode(p, cfg, kind: str, x_t, cache, cur_pos, extras):
     """x_t: [B, 1, d]. Returns (x_t, new_cache). extras["attend_fn"], where
     given, replaces the decode attention of the self-attention blocks (the
     sequence-sharded decode, `distributed.decode_attention`)."""
-    attend_fn = extras.get("attend_fn")
-    if kind in ("attention", "moe_attention"):
-        with obs_trace.span("block.attention"):
-            h = apply_norm(p["ln_attn"], x_t, cfg.norm)
-            if cfg.mla is not None:
-                y, cache = attn.mla_decode(p["attn"], cfg, h, cache,
-                                           cur_pos)
-            else:
-                y, cache = attn.attention_decode(p["attn"], cfg, h, cache,
-                                                 cur_pos,
-                                                 attend_fn=attend_fn)
-            x_t = x_t + y
-        with obs_trace.span(FFN_SPAN[kind]):
-            return x_t + _ffn(p, cfg, kind, x_t, extras)[0], cache
-    if kind == "cross_attention":
-        h = apply_norm(p["ln_attn"], x_t, cfg.norm)
-        x_t = x_t + attn.cross_attention_decode(p["attn"], cfg, h, cache)
-        return _gated_mlp(p, cfg, x_t), cache
-    if kind == "encdec_attention":
-        h = apply_norm(p["ln_self"], x_t, cfg.norm)
-        y, self_cache = attn.attention_decode(p["self_attn"], cfg, h,
-                                              cache["self"], cur_pos,
-                                              attend_fn=attend_fn)
-        x_t = x_t + y
-        h = apply_norm(p["ln_cross"], x_t, cfg.norm)
-        x_t = x_t + attn.cross_attention_decode(p["cross_attn"], cfg, h,
-                                                cache["cross"])
-        return x_t + _mlp(p, cfg, x_t), {"self": self_cache,
-                                         "cross": cache["cross"]}
-    if kind == "recurrent":
-        h = apply_norm(p["ln_rec"], x_t, cfg.norm)
-        y, state = rec_mod.recurrent_block_decode(p["rec"], cfg, h, cache)
-        x_t = x_t + y
-        return x_t + _mlp(p, cfg, x_t), state
-    if kind == "mlstm":
-        h = apply_norm(p["ln"], x_t, cfg.norm)
-        y, state = xlstm_mod.mlstm_block_decode(p["cell"], cfg, h, cache)
-        return x_t + y, state
-    if kind == "slstm":
-        h = apply_norm(p["ln"], x_t, cfg.norm)
-        y, state = xlstm_mod.slstm_block_decode(p["cell"], cfg, h, cache)
-        return x_t + y, state
-    raise ValueError(kind)
+    new = cache
+    for norm, key, sub, span, gate, slot in BLOCKS[kind]:
+        with obs_trace.span(span) if span else obs_trace.NOOP_SPAN:
+            y, c = sub.decode(p[key], cfg, apply_norm(p[norm], x_t, cfg.norm),
+                              cache if slot is None else cache[slot],
+                              cur_pos, extras)
+            x_t = x_t + (y if gate is None else _gated(p[gate], y, x_t))
+        if sub.cache_spec is not None:
+            new = _with_cache(new, slot, c)
+    return x_t, new
+
+
+def block_cache_spec(cfg, kind: str, batch: int, context: int):
+    """The cache `block_prefill` returns for `context` positions, as meta
+    tensors."""
+    spec = None
+    for _, _, sub, _, _, slot in BLOCKS[kind]:
+        if sub.cache_spec is not None:
+            spec = _with_cache(spec, slot, sub.cache_spec(cfg, batch,
+                                                          context))
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -486,52 +475,59 @@ def stack_forward(params, cfg, x, positions, extras,
     return x, aux
 
 
-def stack_prefill(params, cfg, x, positions, cache_len, extras,
-                  kinds_override: Optional[List[str]] = None):
-    prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
-    sp = params["stack"]
-    caches: Dict[str, Any] = {"prefix": {}, "suffix": {}}
-    for i, kind in enumerate(prefix):
-        x, caches["prefix"][f"l{i}"] = block_prefill(
-            sp["prefix"][f"l{i}"], cfg, kind, x, positions, cache_len, extras)
+def _group_slices(tree, n: int) -> List[PyTree]:
+    return [None] * n if tree is None else _groups(tree["groups"], n)
+
+
+def walk_stack(cfg, fn, sp=None, caches=None) -> Dict[str, Any]:
+    """The stack's new caches, {'prefix', 'suffix'(, 'groups')}: fn(kind,
+    params, cache) gives each block's, called on the blocks in order (the
+    prefix, each group's blocks, the suffix) with the block's slices of the
+    stack's params `sp` and of `caches` (None where not given). The
+    groups' caches are stacked along axis 0, under the span
+    `stack.restack` where they replace given ones (a decode step)."""
+    prefix, unit, n_groups, suffix = stack_plan(cfg)
+
+    def blocks(kinds, name, ps, cs):  # ps, cs: dicts, or None
+        new = {}
+        for i, kind in enumerate(kinds):
+            k = f"{name}{i}"
+            new[k] = fn(kind, ps and ps[k], cs and cs[k])
+        return new
+
+    out = {"prefix": blocks(prefix, "l", sp and sp["prefix"],
+                            caches and caches["prefix"])}
+    stacked = None
     if n_groups:
-        per_group = []
-        for gp in _groups(sp["groups"], n_groups):
-            gcaches = {}
-            for pos, kind in enumerate(unit):
-                x, gcaches[f"b{pos}"] = block_prefill(
-                    gp[f"b{pos}"], cfg, kind, x, positions, cache_len, extras)
-            per_group.append(gcaches)
-        caches["groups"] = stack_params(per_group)
-    for i, kind in enumerate(suffix):
-        x, caches["suffix"][f"l{i}"] = block_prefill(
-            sp["suffix"][f"l{i}"], cfg, kind, x, positions, cache_len, extras)
+        gps = _group_slices(sp, n_groups)
+        per_group = [blocks(unit, "b", gp, gc)
+                     for gp, gc in zip(gps, _group_slices(caches, n_groups))]
+        with (obs_trace.NOOP_SPAN if caches is None
+              else obs_trace.span("stack.restack")):
+            stacked = stack_params(per_group)
+    out["suffix"] = blocks(suffix, "l", sp and sp["suffix"],
+                           caches and caches["suffix"])
+    if stacked is not None:
+        out["groups"] = stacked
+    return out
+
+
+def stack_prefill(params, cfg, x, positions, cache_len, extras):
+    """Returns (x, caches)."""
+    def block(kind, p, _):
+        nonlocal x
+        x, cache = block_prefill(p, cfg, kind, x, positions, cache_len,
+                                 extras)
+        return cache
+    caches = walk_stack(cfg, block, params["stack"])
     return x, caches
 
 
-def stack_decode(params, cfg, x_t, caches, cur_pos, extras,
-                 kinds_override: Optional[List[str]] = None):
-    prefix, unit, n_groups, suffix = _plan(cfg, kinds_override)
-    sp = params["stack"]
-    new_caches: Dict[str, Any] = {"prefix": {}, "suffix": {}}
-    for i, kind in enumerate(prefix):
-        x_t, new_caches["prefix"][f"l{i}"] = block_decode(
-            sp["prefix"][f"l{i}"], cfg, kind, x_t,
-            caches["prefix"][f"l{i}"], cur_pos, extras)
-    if n_groups:
-        per_group = []
-        for gp, gc in zip(_groups(sp["groups"], n_groups),
-                          _groups(caches["groups"], n_groups)):
-            ngc = {}
-            for pos, kind in enumerate(unit):
-                x_t, ngc[f"b{pos}"] = block_decode(
-                    gp[f"b{pos}"], cfg, kind, x_t, gc[f"b{pos}"], cur_pos,
-                    extras)
-            per_group.append(ngc)
-        with obs_trace.span("stack.restack"):
-            new_caches["groups"] = stack_params(per_group)
-    for i, kind in enumerate(suffix):
-        x_t, new_caches["suffix"][f"l{i}"] = block_decode(
-            sp["suffix"][f"l{i}"], cfg, kind, x_t,
-            caches["suffix"][f"l{i}"], cur_pos, extras)
+def stack_decode(params, cfg, x_t, caches, cur_pos, extras):
+    """Returns (x_t, new_caches)."""
+    def block(kind, p, cache):
+        nonlocal x_t
+        x_t, cache = block_decode(p, cfg, kind, x_t, cache, cur_pos, extras)
+        return cache
+    new_caches = walk_stack(cfg, block, params["stack"], caches)
     return x_t, new_caches

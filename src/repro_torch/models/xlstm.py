@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
-from repro_torch.models.common import (ParamBuilder, apply_norm, gelu, layout,
-                                       silu)
+from repro_torch.models.common import (ParamBuilder, apply_norm, dtype_of,
+                                       gelu, layout, meta, silu)
 from repro_torch.models.recurrent import (conv1d_causal, conv1d_decode,
                                           init_conv1d)
 
@@ -258,6 +258,17 @@ def mlstm_block_prefill(p, cfg, x, chunk: int = 256):
                  "conv": conv_state}
 
 
+def mlstm_block_cache_spec(cfg, batch: int, context: int):
+    """`mlstm_block_prefill`'s state as meta tensors (any context)."""
+    inner, nh = 2 * cfg.d_model, cfg.num_heads
+    D = inner // nh
+    f32 = torch.float32
+    return {"C": meta((batch, nh, D, D), f32), "n": meta((batch, nh, D), f32),
+            "m": meta((batch, nh), f32),
+            "conv": meta((batch, cfg.conv_width - 1, inner),
+                         dtype_of(cfg.activation_dtype))}
+
+
 def mlstm_block_decode(p, cfg, x_t, st):
     """x_t: [B, 1, d]."""
     nh = cfg.num_heads
@@ -383,6 +394,15 @@ def slstm_block_prefill(p, cfg, x):
     conv_state = x[:, S - (cw - 1):].clone() if cw > 1 else x[:, :0]
     return out, {"c": state[0], "n": state[1], "h": state[2], "m": state[3],
                  "conv": conv_state}
+
+
+def slstm_block_cache_spec(cfg, batch: int, context: int):
+    """`slstm_block_prefill`'s state as meta tensors (any context)."""
+    d = cfg.d_model
+    state = {k: meta((batch, d), torch.float32) for k in ("c", "n", "h", "m")}
+    state["conv"] = meta((batch, cfg.conv_width - 1, d),
+                         dtype_of(cfg.activation_dtype))
+    return state
 
 
 def slstm_block_decode(p, cfg, x_t, st):
