@@ -87,6 +87,22 @@ two layers of it on a one-rank NCCL group's (1, 1) mesh, where the kernel
 runs on the DTensors' local shards, against the same decode without the
 mesh.
 
+Then the routed-only expert FFN (`kernels.moe_experts.moe_experts`, the
+MoE dispatch's bf16 decode on the card), in `moe_phases`:
+`moe_experts_check` holds the kernel pair to its plain version over its
+cases (C from 1 to 16, one expert to 300, every expert full, none filled,
+weights read through strided views), elementwise and by each (expert,
+row)'s relative error, rows past fill exactly 0 (MOE_TOLERANCE); one
+`moe_experts` line each times it at four MoE decodes (MOE_SHAPES:
+deepseek-v3-671b.chat's and a batch of 64, dbrx-132b's in the zoo's serve
+path and at 16 rows): `device_ms` beside the bound of the filled experts'
+bytes and its share, `host_us`, the plain version and the bmm chain over
+all experts as the yardstick, with the row check's reading of a planted
+fault (one filled expert's fill set to 0), which must fail it;
+`expert_route` runs one deepseek-v3-671b prefill and decode step at its
+published width (5 layers, 2 of them MoE) and asserts `moe.expert_route`
+reads 2 `bmm` on the prefill and 2 `kernel` with 2 launches on the decode.
+
 A fourth path serves the full RecurrentGemma-2B config (26 layers, d_model
 2560, vocab 256000; float32 params from seed 0, bf16 activations) with
 `serve.Engine(batch_slots=4, profile_kernels=True)`: 8 greedy requests of
@@ -116,8 +132,12 @@ and the VLM's frontend embeddings come from `launch.serve.extra_batch`.
 Each line gives the params and bytes, peak memory at init and serving,
 both waves' prefill seconds, step p50/p90, tokens/s and the data-sheet
 bounds (`serve_bounds`: for MoE, the step's bytes over every expert, which
-the scatter path reads, and over only the experts a step can route to);
-each probe launch is held against its plain version. A `zoo_consistency`
+the bmm route reads, and over only the experts a step can route to);
+each probe launch is held against its plain version. The MoE configs'
+bf16 decode steps take the routed-only expert kernel pair: every
+`moe.expert_route` call counted `kernel` is one launch of it
+(`expert_routes`, `launches.moe_experts`); their prefills take bmm. A
+`zoo_consistency`
 line then holds one decode step to `forward` (prefill prompt - 1 tokens)
 at float32 activations, with the check's peak memory; MoE configs at
 capacity factor E / top_k so that no token drops.
@@ -291,7 +311,7 @@ ATTN_TOLERANCE = ("|err| <= tol + tol * |plain|, tol = 1e-4 for float32 "
 # the scan multiplies then adds, each rounded, in both versions
 SCAN_TOLERANCE = "|err| <= 1e-5 + 1e-4 * |plain|"
 SOURCES = ("matmul", "matmul_wgmma", "flash_attention",
-           "flash_attention_wgmma", "rg_lru")
+           "flash_attention_wgmma", "rg_lru", "moe_experts")
 
 
 START = time.perf_counter()
@@ -841,16 +861,17 @@ def prefill_attention_timing(fa, torch_device: str) -> list:
     return lines
 
 
-def glm4_prefill_setup(torch_device: str, layers: int, batch: int,
-                       prompt: int, seed: int = 0):
-    """glm4-9b at its published width cut to `layers` layers, bf16 weights
-    drawn on the device (scales around 1, the rest N(0, 0.02)) and `batch`
-    prompts of `prompt` random tokens: (cfg, model, params, tokens)."""
+def drawn_model_setup(torch_device: str, layers: int, batch: int,
+                      prompt: int, seed: int = 0, arch: str = "glm4-9b"):
+    """`arch` (glm4-9b by default) at its published width cut to `layers`
+    layers, weights drawn on the device in their dtypes (scales around 1,
+    the rest N(0, 0.02)) and `batch` prompts of `prompt` random tokens:
+    (cfg, model, params, tokens)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config("glm4-9b")
+    cfg = get_config(arch)
     if layers != cfg.num_layers:
         cfg = cfg.replace(num_layers=layers)
     model = build_model(cfg)
@@ -871,33 +892,42 @@ def glm4_prefill_setup(torch_device: str, layers: int, batch: int,
     return cfg, model, params, tokens
 
 
-def routed_prefill(prefill, params, tokens) -> dict:
-    """One prefill in a fresh metrics registry: the logits,
-    `attn.prefill_route` by route, the prefill kernel's launches and the
-    seconds."""
+def routed(fn, counter: str, routes, kernel, on_card: bool) -> dict:
+    """fn() in a fresh metrics registry, synchronised on a card: its
+    result (`out`), the metrics counter `counter` by each of `routes`,
+    `kernel`'s launches and the seconds."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.obs import metrics as obs_metrics
-    on_card = tokens.device.type == "cuda"
     reg = obs_metrics.MetricsRegistry()
     obs_metrics.push_registry(reg)
-    before = fa.prefill_attention.launches
+    before = kernel.launches
     try:
         if on_card:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, logits = prefill(params, {"tokens": tokens})
+        out = fn()
         if on_card:
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
         obs_metrics.pop_registry(reg)
-    return {"logits": logits,
-            "routes": {r: reg.counter("attn.prefill_route", route=r).value
-                       for r in ("kernel", "loop")},
-            "launches": fa.prefill_attention.launches - before,
-            "seconds": seconds}
+    return {"out": out,
+            "routes": {r: reg.counter(counter, route=r).value
+                       for r in routes},
+            "launches": kernel.launches - before, "seconds": seconds}
+
+
+def routed_prefill(prefill, params, tokens) -> dict:
+    """One prefill in a fresh metrics registry: the logits,
+    `attn.prefill_route` by route, the prefill kernel's launches and the
+    seconds."""
+    from repro_torch.kernels import flash_attention as fa
+    run = routed(lambda: prefill(params, {"tokens": tokens}),
+                 "attn.prefill_route", ("kernel", "loop"),
+                 fa.prefill_attention, tokens.device.type == "cuda")
+    run["logits"] = run.pop("out")[1]
+    return run
 
 
 def prefill_route_share(torch_device: str, batch: int = 2,
@@ -908,7 +938,7 @@ def prefill_route_share(torch_device: str, batch: int = 2,
     launches, and the seconds."""
     import torch
     from repro_torch.configs import get_config
-    cfg, model, params, tokens = glm4_prefill_setup(
+    cfg, model, params, tokens = drawn_model_setup(
         torch_device, get_config("glm4-9b").num_layers, batch, prompt)
     run = routed_prefill(model.prefill, params, tokens)
     routes = run["routes"]
@@ -939,8 +969,8 @@ def prefill_mesh(torch_device: str, tmp: str, layers: int = 2,
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import init_process_group, make_host_mesh
     from repro_torch.train.train_loop import make_serve_prefill
-    cfg, model, params, tokens = glm4_prefill_setup(torch_device, layers,
-                                                    batch, prompt)
+    cfg, model, params, tokens = drawn_model_setup(torch_device, layers,
+                                                   batch, prompt)
     init_process_group(torch_device, init_method="file://" + str(
         Path(tmp) / "prefill_mesh_rendezvous"), rank=0, world_size=1)
     try:
@@ -1171,29 +1201,12 @@ def routed_decode(step, params, state, tokens) -> dict:
     """One decode step in a fresh metrics registry: the logits,
     `attn.decode_route` by route, the decode kernel's launches and the
     seconds."""
-    import torch
-
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.obs import metrics as obs_metrics
-    on_card = tokens.device.type == "cuda"
-    reg = obs_metrics.MetricsRegistry()
-    obs_metrics.push_registry(reg)
-    before = da.decode_attention.launches
-    try:
-        if on_card:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, logits = step(params, state, tokens)
-        if on_card:
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        obs_metrics.pop_registry(reg)
-    return {"logits": logits,
-            "routes": {r: reg.counter("attn.decode_route", route=r).value
-                       for r in ("kernel", "loop")},
-            "launches": da.decode_attention.launches - before,
-            "seconds": seconds}
+    run = routed(lambda: step(params, state, tokens), "attn.decode_route",
+                 ("kernel", "loop"), da.decode_attention,
+                 tokens.device.type == "cuda")
+    run["logits"] = run.pop("out")[1]
+    return run
 
 
 def decode_route_share(torch_device: str, batch: int = 2,
@@ -1205,7 +1218,7 @@ def decode_route_share(torch_device: str, batch: int = 2,
     import torch
 
     from repro_torch.configs import get_config
-    cfg, model, params, tokens = glm4_prefill_setup(
+    cfg, model, params, tokens = drawn_model_setup(
         torch_device, get_config("glm4-9b").num_layers, batch, prompt)
     state, logits = model.prefill(params, {"tokens": tokens},
                                   max_len=prompt + 16)
@@ -1242,8 +1255,8 @@ def decode_mesh(torch_device: str, tmp: str, layers: int = 2,
     from repro_torch.launch.mesh import init_process_group, make_host_mesh
     from repro_torch.train.train_loop import (make_serve_prefill,
                                               make_serve_step)
-    cfg, model, params, tokens = glm4_prefill_setup(torch_device, layers,
-                                                    batch, prompt)
+    cfg, model, params, tokens = drawn_model_setup(torch_device, layers,
+                                                   batch, prompt)
     max_len = prompt + 16
     init_process_group(torch_device, init_method="file://" + str(
         Path(tmp) / "decode_mesh_rendezvous"), rank=0, world_size=1)
@@ -1278,6 +1291,206 @@ def decode_mesh(torch_device: str, tmp: str, layers: int = 2,
               for key in ("routes", "launches", "seconds")}}
     assert rel <= PREFILL_REL_TOL, out
     del params, dparams, runs
+    if torch_device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+# The routed-only expert FFN at the zoo's MoE decodes: (name, E, C, d, f,
+# tokens, top_k). deepseek-v3-671b.chat's decode step (16 rows, top-8 of
+# 256 experts, C 1) and a batch of 64 (C 3); dbrx-132b's decode in the
+# zoo's serve path (4 slots, top-4 of 16, C 2) and at 16 rows (C 5).
+MOE_SHAPES = (("deepseek-v3-671b.chat", 256, 1, 7168, 2048, 16, 8),
+              ("deepseek-v3-671b.b64", 256, 3, 7168, 2048, 64, 8),
+              ("dbrx-132b.zoo", 16, 2, 6144, 10752, 4, 4),
+              ("dbrx-132b.b16", 16, 5, 6144, 10752, 16, 4))
+# the kernel pair against its plain version: the bf16 elementwise
+# tolerance (the same rounding points, another summation order), and each
+# (expert, row)'s ||err|| / ||plain||
+MOE_REL_TOL = 1e-2
+MOE_TOLERANCE = (ATTN_TOLERANCE + "; and ||err|| <= 1e-2 * ||plain|| over "
+                 "each (expert, row); rows at or past fill exactly 0")
+
+
+def moe_inputs(E: int, C: int, d: int, f: int, tokens: int, top_k: int,
+               gen, torch_device: str):
+    """A decode's capacity dispatch drawn on the device: each of `tokens`
+    rows picks top_k distinct experts uniformly, each expert keeps
+    min(count, C) rows (fill, int32), expert_in [E, C, d] bf16 N(0, 1)
+    below fill and 0 past it (as the dispatch leaves it); wi, wg [E, d, f]
+    and wo [E, f, d] bf16, N(0, 1 / fan-in). (x, fill, wi, wg, wo)."""
+    import torch
+    dev = torch_device
+    pick = torch.rand((tokens, E), generator=gen, device=dev).argsort(
+        dim=1)[:, :top_k]
+    fill = torch.clamp(torch.bincount(pick.reshape(-1), minlength=E),
+                       max=C).to(torch.int32)
+    rows = torch.arange(C, device=dev)
+    x = torch.randn((E, C, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    x = torch.where((rows[None, :] < fill[:, None])[..., None], x, 0.0)
+    wi, wg = (torch.randn((E, d, f), generator=gen, device=dev,
+                          dtype=torch.bfloat16).mul_(d ** -0.5)
+              for _ in range(2))
+    wo = torch.randn((E, f, d), generator=gen, device=dev,
+                     dtype=torch.bfloat16).mul_(f ** -0.5)
+    return x, fill, wi, wg, wo
+
+
+def check_moe(got, want, fill, what: str) -> tuple:
+    """The kernel pair's output within MOE_TOLERANCE of its plain
+    version's; returns (max abs error, largest (expert, row) relative
+    error)."""
+    import torch
+    tol = ATTN_TOL["bfloat16"]
+    err = check_allclose(got, want, tol, tol, what)
+    rel = row_rel_err(got, want)
+    assert rel <= MOE_REL_TOL, \
+        f"{what}: an (expert, row)'s relative error {rel} is above " \
+        f"{MOE_REL_TOL}"
+    past = torch.arange(got.shape[1], device=got.device)[None, :] >= \
+        fill[:, None]
+    assert bool((got[past] == 0).all()), f"{what}: a row past fill is not 0"
+    return err, rel
+
+
+def moe_experts_check(me, torch_device: str) -> dict:
+    """The kernel pair (`me.moe_experts`) against `moe_experts_plain` on
+    the card, within MOE_TOLERANCE, over (E, C, d, f, tokens, top_k)
+    cases: C from 1 to 16 (one and two 8-wide token tiles), a single
+    expert, more items than the grid's CTAs, d and f apart; then every
+    expert full, no expert filled (all 0), and weights read through
+    strided views."""
+    import torch
+    gen = torch.Generator(device=torch_device).manual_seed(11)
+    cases = [(8, 1, 256, 384, 4, 2), (8, 3, 384, 256, 8, 2),
+             (40, 8, 512, 640, 64, 4), (40, 9, 640, 512, 64, 4),
+             (5, 16, 1024, 1280, 64, 2), (1, 4, 128, 128, 4, 1),
+             (300, 1, 256, 384, 40, 8), (16, 2, 3072, 512, 4, 4)]
+    worst, worst_rel, ran = 0.0, 0.0, []
+    before = me.moe_experts.launches
+
+    def one(x, fill, wi, wg, wo, what):
+        nonlocal worst, worst_rel
+        got = me.moe_experts(x, fill, wi, wg, wo)
+        want = me.moe_experts_plain(x, fill, wi, wg, wo)
+        err, rel = check_moe(got, want, fill, what)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        return got
+
+    for E, C, d, f, tokens, top_k in cases:
+        x, fill, wi, wg, wo = moe_inputs(E, C, d, f, tokens, top_k, gen,
+                                         torch_device)
+        one(x, fill, wi, wg, wo, f"experts {(E, C, d, f)}")
+        ran.append(f"{E}x{C}x{d}x{f}:{int((fill > 0).sum())}")
+    x, fill, wi, wg, wo = moe_inputs(12, 4, 256, 256, 64, 12, gen,
+                                     torch_device)
+    assert bool((fill == 4).all())
+    one(x, fill, wi, wg, wo, "every expert full")
+    got = one(x, torch.zeros_like(fill), wi, wg, wo, "no expert filled")
+    assert bool((got == 0).all()), "no expert filled"
+    big = torch.randn((12, 256, 2, 384), generator=gen, device=torch_device,
+                      dtype=torch.bfloat16).mul_(1 / 16)
+    # wi and wg read in place, wo (d contiguous no more) through a copy
+    one(x, fill, big[:, :, 0, :256], big[:, :, 1, 128:],
+        wo.transpose(1, 2).contiguous().transpose(1, 2), "strided weights")
+    if torch_device != "cpu":
+        torch.cuda.synchronize()
+    launched = me.moe_experts.launches - before
+    assert launched == (len(cases) + 3 if torch_device != "cpu" else 0), \
+        (launched, len(cases))
+    return {"cases": len(ran) + 3, "launches": launched,
+            "max_abs_err": worst, "max_row_rel_err": worst_rel, "ran": ran}
+
+
+def moe_experts_timing(me, torch_device: str) -> list:
+    """One line for each of MOE_SHAPES: held against the plain version
+    (`max_row_rel_err`) and, with one filled expert's fill set to 0,
+    failing that check (`planted_fault_row_rel_err`); then the kernel
+    pair's `ms`, `device_ms` (CUDA-graph replays) and the wrapper's
+    `host_us` a call, the plain version's `plain_ms`, and the bmm chain
+    over all E experts (`library_ms` / `library_device_ms`: what the
+    dispatch ran before, the yardstick; the port no longer calls it on
+    these shapes), beside the bound (`experts_bytes` of the filled
+    experts over 3.35 TB/s) and the bytes of all E experts."""
+    import torch
+
+    from repro_torch.models.common import silu
+    gen = torch.Generator(device=torch_device).manual_seed(12)
+    lines = []
+    for name, E, C, d, f, tokens, top_k in MOE_SHAPES:
+        x, fill, wi, wg, wo = moe_inputs(E, C, d, f, tokens, top_k, gen,
+                                         torch_device)
+        got = me.moe_experts(x, fill, wi, wg, wo)
+        want = me.moe_experts_plain(x, fill, wi, wg, wo)
+        err, rel = check_moe(got, want, fill, name)
+        planted = fill.clone()
+        planted[int(torch.nonzero(fill)[0, 0])] = 0
+        fault = row_rel_err(me.moe_experts(x, planted, wi, wg, wo), want)
+        assert fault > MOE_REL_TOL, (name, fault)
+        kernel = lambda: me.moe_experts(x, fill, wi, wg, wo)  # noqa: E731
+        plain = lambda: me.moe_experts_plain(x, fill, wi, wg, wo)  # noqa: E731,E501
+        library = lambda: torch.bmm(  # noqa: E731
+            silu(torch.bmm(x, wi)) * torch.bmm(x, wg), wo)
+        filled, rows = int((fill > 0).sum()), int(fill.sum())
+        need = me.experts_bytes(filled, rows, E, C, d, f)
+        line = {"name": name, "shape": [E, C, d, f], "tokens": tokens,
+                "top_k": top_k, "filled_experts": filled, "rows": rows,
+                "host_us": host_us(kernel, 200),
+                "ms": time_ms(kernel, 7, 5),
+                "device_ms": device_ms(kernel, 7, 5),
+                "plain_ms": time_ms(plain, 3, 1),
+                "library_ms": time_ms(library, 7, 5),
+                "library_device_ms": device_ms(library, 7, 5),
+                "max_abs_err": err, "max_row_rel_err": rel,
+                "planted_fault_row_rel_err": fault}
+        line["bound_ms"] = need / HBM_BYTES_PER_S * 1e3
+        line["bound_by"] = "bytes"
+        line["bound_share"] = line["bound_ms"] / line["device_ms"]
+        line["gb_per_s"] = need / line["device_ms"] / 1e6
+        line["all_experts_bound_ms"] = me.experts_bytes(
+            E, E * C, E, C, d, f) / HBM_BYTES_PER_S * 1e3
+        line["speedup_over_library"] = (line["library_device_ms"]
+                                        / line["device_ms"])
+        lines.append(line)
+        del x, fill, wi, wg, wo, got, want
+        if torch_device != "cpu":
+            torch.cuda.empty_cache()
+    return lines
+
+
+def expert_route_share(torch_device: str, batch: int = 16,
+                       prompt: int = 64, layers: int = 5) -> dict:
+    """deepseek-v3-671b at its published width cut to the benchmark's 5
+    layers (3 dense, 2 MoE; bf16 weights drawn on the card): one prefill
+    of `batch` prompts of `prompt` tokens (C = 40: the bmm route), then one
+    decode step (C = 1: the kernel), each in a fresh metrics registry:
+    `moe.expert_route` by route, the kernel pair's launches and the
+    seconds."""
+    import torch
+
+    from repro_torch.kernels import moe_experts as me
+    from repro_torch.models.transformer import layer_kinds
+    cfg, model, params, tokens = drawn_model_setup(
+        torch_device, layers, batch, prompt, arch="deepseek-v3-671b")
+    on_card = torch_device != "cpu"
+
+    def run(fn):
+        return routed(fn, "moe.expert_route", ("kernel", "bmm"),
+                      me.moe_experts, on_card)
+
+    with torch.inference_mode():
+        pre = run(lambda: model.prefill(params, {"tokens": tokens},
+                                        max_len=prompt + 16))
+        state, logits = pre.pop("out")
+        nxt = logits.argmax(dim=-1).to(torch.int32)
+        dec = run(lambda: model.decode_step(params, state, nxt))
+        _, dlogits = dec.pop("out")
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "moe_layers": layer_kinds(cfg).count("moe_attention"),
+           "batch": batch, "prompt": prompt, "prefill": pre, "decode": dec,
+           "finite": bool(torch.isfinite(dlogits.float()).all())}
+    del params, state, logits, dlogits
     if torch_device != "cpu":
         torch.cuda.empty_cache()
     return out
@@ -2393,6 +2606,7 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
     import torch
 
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import moe_experts as me
     from repro_torch.launch.serve import extra_batch
     from repro_torch.models import build_model
     from repro_torch.obs import metrics as obs_metrics
@@ -2419,7 +2633,7 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
     obs_metrics.push_registry(reg)
     try:
         reset_launches((mm.matmul, fa.flash_attention, lru.rg_lru,
-                        da.decode_attention))
+                        da.decode_attention, me.moe_experts))
         engine = Engine(model, params, max_len=prompt + new + 8,
                         batch_slots=slots, extra_batch=extra,
                         profile_kernels=True, device="tpu_v5e")
@@ -2431,7 +2645,8 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
         launches = {"matmul": mm.matmul.launches,
                     "flash_attention": fa.flash_attention.launches,
                     "rg_lru": lru.rg_lru.launches,
-                    "decode_attention": da.decode_attention.launches}
+                    "decode_attention": da.decode_attention.launches,
+                    "moe_experts": me.moe_experts.launches}
         by_variant = {"matmul": dict(mm.matmul.launches_by_variant),
                       "flash_attention": dict(
                           fa.flash_attention.launches_by_variant)}
@@ -2441,6 +2656,8 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
     hists = snap["histograms"]
     decode_routes = {r: reg.counter("attn.decode_route", route=r).value
                      for r in ("kernel", "loop")}
+    expert_routes = {r: reg.counter("moe.expert_route", route=r).value
+                     for r in ("kernel", "bmm")}
     pre = reg.histogram("serve.engine.prefill_seconds")
     step = reg.histogram("serve.engine.step_seconds")
     kernel_seconds = {
@@ -2468,7 +2685,7 @@ def drive_serve_path(torch_device: str, cfg, modules, requests: int = 8,
         "tokens_counter": snap["counters"]["serve.engine.tokens"],
         "kernel_seconds_counts": kernel_seconds,
         "launches": launches, "launches_by_variant": by_variant,
-        "decode_routes": decode_routes,
+        "decode_routes": decode_routes, "expert_routes": expert_routes,
         **serve_bounds(cfg, params, slots, prompt, prompt + new + 8)}
     if on_card:  # init's peak (group trees stacked), then serving's
         summary["init_max_memory_allocated_gb"] = init_peak
@@ -2676,6 +2893,8 @@ def zoo_serve_phase(torch_device: str, cfg, published_layers: int,
         assert serve["decode_routes"] == {
             "kernel": sv["decode_attention"], "loop": 0}, \
             serve["decode_routes"]
+        assert serve["expert_routes"]["kernel"] == sv["moe_experts"], \
+            serve["expert_routes"]
     assert serve["requests"] == 8 and \
         serve["tokens_per_request"] == [new], serve
     ccfg, cf = cfg, None
@@ -3875,6 +4094,24 @@ def decode_phases(torch, da, tmp: str) -> None:
             mesh[f"{side}_launches"] == 2, mesh
 
 
+def moe_phases(torch, me) -> None:
+    """The routed-only expert FFN kernel pair: its check over the cases,
+    its times at the zoo's MoE decodes (each with a planted fault that
+    must fail the check), and the routes of one deepseek-v3-671b prefill
+    (bmm) and decode step (the kernel) at published width."""
+    emit("moe_experts_check", kernel="moe_experts", tolerance=MOE_TOLERANCE,
+         **moe_experts_check(me, "cuda"))
+    for line in moe_experts_timing(me, "cuda"):
+        emit("moe_experts", **line)
+    route = expert_route_share("cuda")
+    emit("expert_route", **route)
+    assert route["moe_layers"] == 2 and route["finite"], route
+    assert route["prefill"]["routes"] == {"kernel": 0, "bmm": 2} and \
+        route["prefill"]["launches"] == 0, route
+    assert route["decode"]["routes"] == {"kernel": 2, "bmm": 0} and \
+        route["decode"]["launches"] == 2, route
+
+
 def run_phases(torch, tmp: str) -> int:
     from repro_torch.autotune.space import config_valid
     from repro_torch.autotune.tasks import arch_tasks, resnet18_tasks
@@ -3884,6 +4121,7 @@ def run_phases(torch, tmp: str) -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import rg_lru as lru
 
     smi = nvidia_smi()
@@ -3906,6 +4144,7 @@ def run_phases(torch, tmp: str) -> int:
          **scan_check(lru, "cuda"))
     prefill_phases(torch, fa, tmp)
     decode_phases(torch, da, tmp)
+    moe_phases(torch, me)
 
     moses_cfg = MosesConfig()
     emit("cost_model_parity", **cost_model_parity("cuda", moses_cfg))
@@ -4068,8 +4307,9 @@ def run_phases(torch, tmp: str) -> int:
     emit("serve_path", **serve)
     sv = serve["launches"]
     # each kernel, in the engine's probe; the local attention's decode on
-    # the decode kernel
-    assert min(sv.values()) >= 1, sv
+    # the decode kernel (no MoE layer: no expert kernel)
+    assert min(sv[k] for k in (*PROBE_KERNELS, "decode_attention")) >= 1, sv
+    assert sv["moe_experts"] == 0, sv
     assert serve["decode_routes"] == {
         "kernel": sv["decode_attention"], "loop": 0}, serve["decode_routes"]
     assert serve["requests"] == 8 and serve["tokens_per_request"] == [32], \

@@ -35,13 +35,61 @@ factor.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import moe_experts as me
 from repro_torch.models.common import activation
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
+
+@functools.lru_cache(maxsize=1024)
+def expert_route(device_type: str, dtype, E: int, C: int, d: int, f: int,
+                 needs_grad: bool, act: Optional[str]) -> str:
+    """"kernel" where `kernels.moe_experts.moe_experts` takes a dispatch's
+    expert FFN: CUDA tensors, bf16 (`dtype` is the one dtype of the
+    buffers and the three weights, None where they differ), no gradient
+    needed, gated SiLU experts (`act` is the gated activation, None
+    without a gate), and E experts of C rows, d and f that
+    `experts_refusal` accepts (C <= 16: a decode's capacity); "bmm"
+    otherwise. It reads only what it is given, so a test can ask it about
+    a card's tensors on the CPU; cached, as the decode step asks it once an
+    MoE layer."""
+    if device_type != "cuda" or needs_grad or act != "silu":
+        return "bmm"
+    return "kernel" if me.experts_refusal(E, C, d, f, dtype) is None \
+        else "bmm"
+
+
+def _fills(counted, offset, e0: int, E_loc: int, C_loc: int):
+    """Each local expert's rows that may hold a token, int32 [E_loc], from
+    the inclusive cumsum of the one-hot assignments: its count, capped at
+    C_loc; where `offset` places an expert's rows after those of earlier
+    tokens, the rows up to its last kept one (0 for an expert with no
+    assignment here)."""
+    n = counted[-1]
+    if offset is None:
+        return torch.clamp(n, max=C_loc).to(torch.int32)
+    end = torch.clamp(n + offset[e0:e0 + E_loc], max=C_loc)
+    return torch.where(n > 0, end, 0).to(torch.int32)
+
+
+def _note_experts_run(E_loc: int, fill=None) -> None:
+    """`experts_run` of the open `block.moe` span, under a tracer: the
+    experts whose weights the dispatch's FFN read, E_loc on the bmm route
+    (`fill` None), those with fill > 0 on the kernel route (a device
+    scalar). Computes nothing without a tracer."""
+    tracer = obs_trace.current_tracer()
+    if tracer is None:
+        return
+    s = tracer.current_span()
+    if s is not None and s.name == "block.moe":
+        s.set_attr(experts_run=E_loc if fill is None else (fill > 0).sum())
 
 
 def _local_dispatch_ffn(cfg, xf, weights, idx, wi, wg, wo, shard_id, E_loc,
@@ -51,7 +99,11 @@ def _local_dispatch_ffn(cfg, xf, weights, idx, wi, wg, wo, shard_id, E_loc,
     (sum over THIS shard's experts only). `offset` [E] (the port's
     addition; None in the reference's path) counts each expert's
     assignments from tokens before xf's: a capacity over the global token
-    order, which the mesh form of the scatter path uses."""
+    order, which the mesh form of the scatter path uses. The experts' FFN
+    runs on the routed-only kernel pair (`kernels.moe_experts`, reading
+    only the experts given a row) where `expert_route` picks it, else as
+    three `torch.bmm` over every expert's buffer; `moe.expert_route`
+    counts each call's route."""
     T_loc, d = xf.shape
     k = idx.shape[1]
     e0 = shard_id * E_loc
@@ -61,7 +113,8 @@ def _local_dispatch_ffn(cfg, xf, weights, idx, wi, wg, wo, shard_id, E_loc,
     a = lidx.reshape(T_loc * k)
     valid = local.reshape(T_loc * k)
     onehot = F.one_hot(a, E_loc).to(torch.int32) * valid[:, None]
-    pos = torch.cumsum(onehot, dim=0) - onehot        # exclusive cumsum
+    counted = torch.cumsum(onehot, dim=0)
+    pos = counted - onehot                            # exclusive cumsum
     pos_in_e = pos.gather(1, a[:, None])[:, 0]
     if offset is not None:
         pos_in_e = pos_in_e + offset[e0:e0 + E_loc][a]
@@ -78,13 +131,29 @@ def _local_dispatch_ffn(cfg, xf, weights, idx, wi, wg, wo, shard_id, E_loc,
     buf.index_add_(0, dest, x_rep * keep_x)
     expert_in = buf[: E_loc * C_loc].reshape(E_loc, C_loc, d)
 
-    act = activation(cfg.act)
-    h = torch.bmm(expert_in, wi.to(xf.dtype))
-    if wg is not None:
-        h = act(h) * torch.bmm(expert_in, wg.to(xf.dtype))
+    dt = xf.dtype
+    mats = (wi, wo) if wg is None else (wi, wg, wo)
+    needs_grad = torch.is_grad_enabled() and (
+        xf.requires_grad or any(w.requires_grad for w in mats))
+    route = expert_route(
+        xf.device.type, dt if all(w.dtype == dt for w in mats) else None,
+        E_loc, C_loc, d, wi.shape[-1], needs_grad,
+        None if wg is None else cfg.act)
+    obs_metrics.current().counter("moe.expert_route", route=route).inc()
+    if route == "kernel":
+        fill = _fills(counted, offset, e0, E_loc, C_loc)
+        _note_experts_run(E_loc, fill)
+        out = me.moe_experts(expert_in, fill, wi, wg, wo)
     else:
-        h = act(h)
-    out = torch.bmm(h, wo.to(xf.dtype)).reshape(E_loc * C_loc, d)
+        _note_experts_run(E_loc)
+        act = activation(cfg.act)
+        h = torch.bmm(expert_in, wi.to(dt))
+        if wg is not None:
+            h = act(h) * torch.bmm(expert_in, wg.to(dt))
+        else:
+            h = act(h)
+        out = torch.bmm(h, wo.to(dt))
+    out = out.reshape(E_loc * C_loc, d)
     out = torch.cat([out, torch.zeros((1, d), dtype=out.dtype,
                                       device=out.device)], dim=0)
     gathered = out[dest] * (weights.reshape(T_loc * k, 1).to(xf.dtype)

@@ -15,6 +15,9 @@
                       replaces no TPU kernel
   rg_lru.py           RG-LRU linear scan (CUDA C++, csrc/rg_lru.cu), the
                       port of `repro/kernels/rg_lru.py`
+  moe_experts.py      the MoE dispatch's gated SiLU experts on only the
+                      experts given a row (CUDA C++, csrc/moe_experts.cu);
+                      replaces no TPU kernel
   csrc/hopper.cuh     mbarrier, TMA and wgmma helpers of the Hopper sources
   ops.py     dispatches registry-tuned configs; ref.py holds the oracles.
 """

@@ -22,9 +22,17 @@ still counted in the global token order. That buffer is already the
 placement the reference's `moe_expert_parallel` pin asks for (experts on
 "model"); the hint pins it there even where the weights are replicated.
 
+The body's expert FFN runs on the card as the routed-only kernel pair
+`kernels.moe_experts` (only the experts the dispatch gave rows) where
+`distributed.expert_parallel.expert_route` picks it: CUDA, bf16, no
+gradient, gated SiLU, at most 16 capacity rows (a decode); elsewhere as
+three `torch.bmm` over every expert's buffer (prefill, training, float32,
+the CPU).
+
 Under an active `obs.trace.Tracer`, the scatter sets its routing counts
 (`_count_routing`) on the open `block.moe` span, from the router's own
-count of assignments per expert; with no tracer it computes nothing more.
+count of assignments per expert, and the body the experts its FFN read;
+with no tracer it computes nothing more.
 """
 from __future__ import annotations
 
@@ -121,16 +129,16 @@ def _count_routing(s, counts: torch.Tensor, assignments: int,
                    C: int) -> None:
     """The capacity dispatch's routing as attrs of span `s` where it is
     the open `block.moe`: `assignments` (T * k), `dropped` (those past
-    their expert's C rows: sum over experts of max(0, count - C)),
-    `experts_used` (experts given an assignment) and `experts_run`
-    (experts the dispatch runs: all E). The two counts stay device
-    scalars until the trace is read."""
+    their expert's C rows: sum over experts of max(0, count - C)) and
+    `experts_used` (experts given an assignment). The dispatch body adds
+    `experts_run`, the experts whose weights its FFN read (all E on the
+    bmm route, those given a row on the kernel route). The counts stay
+    device scalars until the trace is read."""
     if s is None or s.name != "block.moe":
         return
     s.set_attr(assignments=assignments,
                dropped=torch.clamp(counts - C, min=0).sum().to(torch.int64),
-               experts_used=(counts > 0).sum(),
-               experts_run=counts.shape[0])
+               experts_used=(counts > 0).sum())
 
 
 def moe_forward_scatter(p, cfg, x: torch.Tensor
